@@ -1,0 +1,140 @@
+"""The hand-written CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: each test skips without a CUDA device. Run them on the
+H100 with ``python -m pytest tests/test_torch_cuda.py -q``. The shapes
+here are the awkward ones the scoring path does not reach (odd widths,
+misaligned buffers, empty and hub rows, every K2 word size);
+``chip_smoke.py`` covers the path's own shapes.
+
+Tolerances: K2 bit-exact. K1 sums in f32 in another order than the plain
+version: f32 output within 1e-5 of the output's largest magnitude; bf16
+output within one bf16 ulp (≤ 2^-7·|ref|) of it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from alaz_tpu_torch.ops import segment_kernels as K
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _sorted_dst(n_pad, e, seed, hub=False):
+    rng = np.random.default_rng(seed)
+    hi = n_pad // 2  # upper half of the rows gets no edges: empty blocks
+    dst = rng.integers(0, hi, e)
+    if hub:
+        dst[: e // 2] = 3  # one row with half of all edges
+    return np.sort(dst).astype(np.int32)
+
+
+def _assert_k1_close(got, ref):
+    scale = 1e-5 * float(ref.float().abs().max())
+    err = (got.float() - ref.float()).abs()
+    if ref.dtype == torch.float32:
+        assert float(err.max()) <= scale
+    else:
+        assert bool((err <= 2.0**-7 * ref.float().abs() + scale).all())
+
+
+@pytest.mark.parametrize("f", [1, 3, 128, 129])
+@pytest.mark.parametrize("in_dtype,out_dtype", [
+    (torch.float32, None), (torch.bfloat16, None), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.bfloat16),
+])
+@pytest.mark.parametrize("hub", [False, True])
+def test_scatter_sum_sorted_matches_plain(dev, f, in_dtype, out_dtype, hub):
+    n_pad, e, n_edges = 512, 4096, 4000
+    dst = _sorted_dst(n_pad, e, f, hub)
+    dst[n_edges:] = n_pad - 1
+    bs = np.searchsorted(dst[:n_edges], np.arange(0, n_pad + 1, 128)).astype(np.int32)
+    msgs = torch.randn((e, f), device=dev).to(in_dtype)
+    msgs[n_edges:] = 0
+    d = torch.as_tensor(dst, device=dev)
+    starts = torch.as_tensor(bs, device=dev)
+    before = K.scatter_sum_sorted.launches
+    coo = K.scatter_sum_sorted(msgs, d, n_pad, out_dtype)
+    blk = K.scatter_sum_sorted(msgs, d, n_pad, out_dtype, starts)
+    assert K.scatter_sum_sorted.launches == before + 2
+    want = in_dtype if out_dtype is None else out_dtype
+    assert coo.dtype == blk.dtype == want and coo.shape == (n_pad, f)
+    _assert_k1_close(coo, K.scatter_sum_sorted_plain(msgs, d, n_pad, want))
+    _assert_k1_close(blk, K.scatter_sum_sorted_plain(msgs, d, n_pad, want, starts))
+    assert torch.equal(coo[: n_pad - 1], blk[: n_pad - 1])
+    assert float(coo[n_pad // 2 : n_pad - 1].abs().max()) == 0.0
+
+
+def test_scatter_sum_sorted_misaligned_and_deterministic(dev):
+    n_pad, e, f = 256, 1000, 8
+    d = torch.as_tensor(_sorted_dst(n_pad, e, 1), device=dev)
+    flat = torch.randn(e * f + 1, device=dev)
+    msgs = flat[1:].view(e, f)  # contiguous, 4 bytes past a 16-byte boundary
+    a = K.scatter_sum_sorted(msgs, d, n_pad)
+    _assert_k1_close(a, K.scatter_sum_sorted_plain(msgs, d, n_pad, torch.float32))
+    assert torch.equal(a, K.scatter_sum_sorted(msgs, d, n_pad))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16, torch.int32, torch.uint8])
+@pytest.mark.parametrize("f", [1, 3, 128, 129])
+def test_segment_expand_sorted_bit_exact(dev, dtype, f):
+    n_pad, e = 256, 3000
+    d = torch.as_tensor(_sorted_dst(n_pad, e, f), device=dev)
+    v = (torch.randn((n_pad, f), device=dev) * 50).to(dtype)
+    before = K.segment_expand_sorted.launches
+    out = K.segment_expand_sorted(v, d, n_pad)
+    assert K.segment_expand_sorted.launches == before + 1
+    assert torch.equal(out, K.segment_expand_sorted_plain(v, d))
+    flat = torch.zeros(n_pad * f + 1, dtype=dtype, device=dev)
+    flat[1:] = v.reshape(-1)
+    shifted = flat[1:].view(n_pad, f)  # misaligned by one element
+    assert torch.equal(K.segment_expand_sorted(shifted, d, n_pad), out)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(dev):
+    n_pad, e = 256, 512
+    d = torch.as_tensor(_sorted_dst(n_pad, e, 2), device=dev)
+    msgs = torch.randn((e, 16), device=dev)
+    with pytest.raises(TypeError, match="int32"):
+        K.scatter_sum_sorted(msgs, d.long(), n_pad)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.scatter_sum_sorted(msgs.t().contiguous().t(), d, n_pad)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        K.scatter_sum_sorted(msgs, d, 200)
+    with pytest.raises(ValueError, match="entries"):
+        K.scatter_sum_sorted(msgs, d, n_pad, block_starts=torch.zeros(5, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="is on cpu"):
+        K.scatter_sum_sorted(msgs, d.cpu(), n_pad)
+    with pytest.raises(ValueError, match="rows"):
+        K.segment_expand_sorted(msgs, d, n_pad)
+
+
+def test_graphsage_on_card_matches_cpu(dev):
+    """The whole forward on the card (kernels) against the CPU (plain
+    versions): bf16 matmuls differ between the two devices' libraries,
+    so logits are held at four bf16 ulps of the largest (2^-6·max|ref|)."""
+    from alaz_tpu_torch.config import ModelConfig
+    from alaz_tpu_torch.convert import graph_to_torch
+    from alaz_tpu_torch.models import graphsage
+    from alaz_tpu_torch.replay.synth import example_batch
+
+    cfg = ModelConfig(hidden_dim=128)
+    batch = example_batch(n_pods=900, n_svcs=100, n_edges=4000, seed=0)
+    model = graphsage.init(0, cfg, device="cpu")
+    with torch.inference_mode():
+        ref = graphsage.apply(model, graph_to_torch(batch.device_arrays(), "cpu"), cfg)
+        K.reset_launch_counts()
+        got = graphsage.apply(model.to(dev), graph_to_torch(batch.device_arrays(), dev), cfg)
+    assert K.launch_counts() == {"scatter_sum_sorted": 2, "segment_expand_sorted": 1}
+    for key, n in (("edge_logits", batch.n_edges), ("node_logits", batch.n_nodes)):
+        r, g = ref[key][:n], got[key][:n].cpu()
+        assert float((g - r).abs().max()) <= 2.0**-6 * float(r.abs().max())
