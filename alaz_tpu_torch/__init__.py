@@ -5,11 +5,12 @@ The PyTorch/CUDA counterpart of the JAX package ``alaz_tpu``, laid out
 the same way so each module has an obvious twin:
 
 - ``alaz_tpu_torch.config``   — ``ModelConfig`` (same fields and defaults)
-- ``alaz_tpu_torch.graph``    — ``GraphBatch`` windows, bucketing, features
+- ``alaz_tpu_torch.graph``    — ``GraphBatch`` windows, bucketing, features,
+  the ``cluster_renumber`` locality pass and its gauges
 - ``alaz_tpu_torch.replay``   — synthetic service-map windows
 - ``alaz_tpu_torch.ops``      — segment ops; the hand-written Hopper
   kernels live in ``csrc/`` and are bound in ``ops/segment_kernels.py``
-- ``alaz_tpu_torch.models``   — GraphSAGE anomaly scorer
+- ``alaz_tpu_torch.models``   — GraphSAGE and GAT anomaly scorers
 - ``alaz_tpu_torch.train``    — score functions
 - ``alaz_tpu_torch.runtime``  — ``WindowScorer``, the serial scoring loop
 - ``alaz_tpu_torch.convert``  — params and graphs carried in from numpy

@@ -61,8 +61,9 @@ class ModelConfig:
     dropout: float = 0.1
     dtype: str = "bfloat16"
     use_pallas: bool = True
-    # src-side gather: "xla" is the plain row gather; "banded" needs the
-    # banded-gather kernel, which this package does not have yet
+    # src-side gather: "xla" is the plain row gather; "banded" is the
+    # banded-gather kernel (K3), meant for windows laid out by
+    # graph/builder.py cluster_renumber; both give exactly v[src]
     src_gather: str = "xla"
     # "coo" scores the flat dst-sorted edge list; "blocked" also ships
     # per-128-dst-row extents and routes segment sums through them

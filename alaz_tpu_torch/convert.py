@@ -1,7 +1,7 @@
 """Carry params and graphs across from numpy.
 
-A JAX GraphSAGE param tree, with numpy leaves, becomes the ``GraphSAGE``
-module's state dict: the tree's dict keys and list indices joined by
+A JAX param tree (GraphSAGE or GAT), with numpy leaves, becomes the
+model module's state dict: the tree's dict keys and list indices joined by
 ``.`` are the module's parameter names, and every leaf keeps its shape.
 Dense weights are ``[in, out]`` in both packages (``models/common.py
 Dense`` computes ``x @ w``), so nothing is transposed.

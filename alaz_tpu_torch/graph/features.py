@@ -1,27 +1,15 @@
-"""Feature widths and node renumbering of the window builder.
+"""Feature widths of the window builder.
 
-Copies of the JAX package's ``graph/builder.py`` constants and
-``apply_renumber``: the port scores windows of the same widths.
+Copies of the JAX package's ``graph/builder.py`` constants: the port
+scores windows of the same widths. ``apply_renumber`` lives in
+``graph/builder.py`` and is re-exported here under its old import path.
 """
 
 from __future__ import annotations
 
-import numpy as np
+from alaz_tpu_torch.graph.builder import apply_renumber
 
 NODE_FEATURE_DIM = 32
 EDGE_FEATURE_DIM = 16
 
-
-def apply_renumber(
-    perm: np.ndarray,
-    edge_src: np.ndarray,
-    edge_dst: np.ndarray,
-    *node_arrays: np.ndarray,
-) -> tuple:
-    """Apply a node permutation: edge endpoints are remapped through
-    ``perm`` and every per-node array is reordered so row ``perm[i]`` of
-    the output is row ``i`` of the input."""
-    inv = np.empty_like(perm)
-    inv[perm] = np.arange(perm.shape[0], dtype=perm.dtype)
-    out_nodes = tuple(a[inv] for a in node_arrays)
-    return (perm[edge_src], perm[edge_dst]) + out_nodes
+__all__ = ["EDGE_FEATURE_DIM", "NODE_FEATURE_DIM", "apply_renumber"]

@@ -2,13 +2,12 @@
 
 from __future__ import annotations
 
-from alaz_tpu_torch.models import graphsage
+from alaz_tpu_torch.models import gat, graphsage
 
 REGISTERED_MODELS = ("graphsage", "gat", "tgn", "experts")
 # models of the JAX package this package does not have yet, each with
 # its place in ROADMAP.md's queue of slices
 _NOT_PORTED = {
-    "gat": "the GAT slice",
     "experts": "the experts slice",
     "tgn": "the TGN slice",
 }
@@ -17,6 +16,8 @@ _NOT_PORTED = {
 def get_model(name: str):
     if name == "graphsage":
         return graphsage.init, graphsage.apply
+    if name == "gat":
+        return gat.init, gat.apply
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"model {name!r} is not ported yet: ROADMAP.md queues it as {_NOT_PORTED[name]}"

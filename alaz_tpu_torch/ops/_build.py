@@ -35,6 +35,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "alaz_scatter_sum_sorted": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "alaz_segment_expand_sorted": (_I, [_P, _P, _P, _I, _I, ctypes.c_longlong, _I, _P]),
+    "alaz_gather_rows_banded": (_I, [_P, _P, _P, _I, _I, ctypes.c_longlong, _I, _P]),
+    "alaz_gather_scatter_sum": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "alaz_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

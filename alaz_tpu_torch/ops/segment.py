@@ -126,6 +126,11 @@ def segment_sum_accurate(
     )
 
 
+# THE attention-logit clamp of GAT's fused softmax-aggregate: softmax of
+# the clamped logits equals softmax of the logits whenever |x| <= 30, and
+# exp(30) ~ 1e13 keeps the f32 segment sums far from overflow
+ATTENTION_LOGIT_CLAMP = 30.0
+
 _SRC_GATHER_MODES = ("xla", "banded", "banded-interpret")
 
 
@@ -136,14 +141,42 @@ def gather_src(
     mode: str = "xla",
 ) -> torch.Tensor:
     """[N, F] → [E, F] gather ``v[src_ids]`` for UNSORTED src ids.
-    ``mode``: "xla" is the plain row gather. The banded modes need the
-    banded-gather kernel, which is still to be ported; an unknown mode
-    raises."""
+    ``mode``: "xla" is the plain row gather; "banded" and the JAX
+    package's test mode "banded-interpret" go through the banded-gather
+    wrapper (K3 on a CUDA tensor, its plain version on a CPU one). Both
+    give exactly ``v[src_ids]``. An unknown mode raises: a typo must not
+    measure the wrong path under the right name."""
     if mode not in _SRC_GATHER_MODES:
         raise ValueError(f"src_gather mode {mode!r}; expected one of {_SRC_GATHER_MODES}")
-    if mode != "xla":
-        raise NotImplementedError(
-            f"src_gather={mode!r} needs the banded-gather kernel, still to be "
-            "ported (ROADMAP.md, kernels still to port)"
+    if mode == "xla":
+        return v[src_ids]
+    return segment_kernels.gather_rows_banded(v, src_ids, num_nodes)
+
+
+def gather_scatter_sum(
+    x: torch.Tensor,
+    edge_src: torch.Tensor,
+    edge_dst: torch.Tensor,
+    num_nodes: int,
+    edge_weight: torch.Tensor | None = None,
+    use_pallas: bool | str | None = None,
+    block_starts: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """out[d] = Σ_{e: dst[e]=d} w[e]·x[src[e]] over dst-sorted edges.
+
+    With kernels enabled (``use_pallas=None`` means enabled; the tensors'
+    device then decides where it runs) this is the fused gather-scatter
+    wrapper (K4): messages formed in x's dtype, summed in f32, one
+    rounding, ``block_starts`` as its row starts. Otherwise the plain
+    gather and segment sum at the message dtype, through
+    ``blocked_segment_sum`` when ``block_starts`` is given."""
+    if use_pallas is None or kernels_enabled(use_pallas):
+        return segment_kernels.pallas_gather_scatter_sum(
+            x, edge_src, edge_dst, num_nodes, edge_weight, block_starts
         )
-    return v[src_ids]
+    msgs = x[edge_src]
+    if edge_weight is not None:
+        msgs = msgs * edge_weight[:, None]
+    if block_starts is not None:
+        return blocked_segment_sum(msgs, edge_dst, block_starts, num_nodes)
+    return segment_sum(msgs, edge_dst, num_nodes)

@@ -10,9 +10,12 @@ run can show that the scoring path went through the kernels.
   ``alaz_tpu/ops/pallas_segment.py scatter_sum_sorted``.
 - ``segment_expand_sorted`` (K2) replaces the TPU kernel
   ``alaz_tpu/ops/pallas_segment.py segment_expand_sorted``.
+- ``gather_rows_banded`` (K3) replaces the TPU kernel
+  ``alaz_tpu/ops/pallas_segment.py gather_rows_banded``.
+- ``pallas_gather_scatter_sum`` (K4) replaces the TPU kernel
+  ``alaz_tpu/ops/pallas_segment.py pallas_gather_scatter_sum``.
 
-Both are forward only: their backward passes (each the other's) come with
-training.
+All are forward only: their backward passes come with training.
 """
 
 from __future__ import annotations
@@ -27,8 +30,8 @@ from alaz_tpu_torch.ops import _build
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}  # csrc/segment.cu enum
 
 
-def _forward_only(*tensors: torch.Tensor) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+def _forward_only(*tensors: torch.Tensor | None) -> None:
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(
             "the segment kernels are forward only; their backward comes "
             "with training (ROADMAP.md)"
@@ -99,6 +102,24 @@ def scatter_sum_sorted(
     return out if kout == dtype else out.to(dtype)
 
 
+def _row_starts(edge_dst, num_nodes, block_starts):
+    """The edge run of each 128-row dst block: the blocked layout's host
+    extents, or a search of the dst-sorted ids (the COO layout)."""
+    dev = edge_dst.device
+    if num_nodes <= 0 or num_nodes % EDGE_BLOCK_ROWS:
+        raise ValueError(f"num_nodes={num_nodes} must be a positive multiple of {EDGE_BLOCK_ROWS}")
+    n_blocks = num_nodes // EDGE_BLOCK_ROWS
+    if block_starts is None:
+        bounds = torch.arange(0, num_nodes + 1, EDGE_BLOCK_ROWS, dtype=torch.int32, device=dev)
+        return torch.searchsorted(edge_dst, bounds, out_int32=True)
+    _cuda_input(block_starts, "block_starts", dev, 1, torch.int32)
+    if block_starts.shape[0] != n_blocks + 1:
+        raise ValueError(
+            f"block_starts has {block_starts.shape[0]} entries, expected {n_blocks + 1}"
+        )
+    return block_starts
+
+
 def _scatter_sum_sorted_cuda(msgs, edge_dst, num_nodes, out_dtype, block_starts):
     dev = msgs.device
     if dev.type != "cuda":
@@ -108,21 +129,9 @@ def _scatter_sum_sorted_cuda(msgs, edge_dst, num_nodes, out_dtype, block_starts)
     e, f = msgs.shape
     if edge_dst.shape[0] != e:
         raise ValueError(f"edge_dst has {edge_dst.shape[0]} ids for {e} message rows")
-    if num_nodes <= 0 or num_nodes % EDGE_BLOCK_ROWS:
-        raise ValueError(f"num_nodes={num_nodes} must be a positive multiple of {EDGE_BLOCK_ROWS}")
     if max(e, f, num_nodes) >= 2**31:
         raise ValueError("scatter_sum_sorted: dimensions must fit int32")
-    n_blocks = num_nodes // EDGE_BLOCK_ROWS
-    if block_starts is None:
-        bounds = torch.arange(0, num_nodes + 1, EDGE_BLOCK_ROWS, dtype=torch.int32, device=dev)
-        row_start = torch.searchsorted(edge_dst, bounds, out_int32=True)
-    else:
-        _cuda_input(block_starts, "block_starts", dev, 1, torch.int32)
-        if block_starts.shape[0] != n_blocks + 1:
-            raise ValueError(
-                f"block_starts has {block_starts.shape[0]} entries, expected {n_blocks + 1}"
-            )
-        row_start = block_starts
+    row_start = _row_starts(edge_dst, num_nodes, block_starts)
     out = torch.empty((num_nodes, f), dtype=out_dtype, device=dev)
     vec = 4 if f % 4 == 0 and msgs.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0 else 1
     lib = _build.library()
@@ -156,38 +165,159 @@ def segment_expand_sorted(v: torch.Tensor, edge_dst: torch.Tensor, num_nodes: in
     _forward_only(v)
     if v.device.type == "cpu":
         return segment_expand_sorted_plain(v, edge_dst)
+    out, launched = _row_gather_cuda("segment_expand_sorted", v, edge_dst, num_nodes)
+    segment_expand_sorted.launches += launched
+    return out
+
+
+segment_expand_sorted.launches = 0
+
+
+def _row_gather_cuda(name: str, v, ids, num_nodes):
+    """Launch K2 or K3 (one copy loop, two kernels): ``(out, 1)``, or
+    ``(out, 0)`` when there is nothing to copy."""
     dev = v.device
     if dev.type != "cuda":
-        raise ValueError(f"segment_expand_sorted: no kernel for device {dev}")
+        raise ValueError(f"{name}: no kernel for device {dev}")
     _cuda_input(v, "v", dev, 2)
-    _cuda_input(edge_dst, "edge_dst", dev, 1, torch.int32)
+    _cuda_input(ids, "ids", dev, 1, torch.int32)
     if v.shape[0] != num_nodes:
         raise ValueError(f"v has {v.shape[0]} rows, num_nodes={num_nodes}")
-    e = edge_dst.shape[0]
+    e = ids.shape[0]
     if max(e, num_nodes) >= 2**31:
-        raise ValueError("segment_expand_sorted: dimensions must fit int32")
+        raise ValueError(f"{name}: dimensions must fit int32")
     out = torch.empty((e, v.shape[1]), dtype=v.dtype, device=dev)
     row_bytes = v.shape[1] * v.element_size()
     if e == 0 or row_bytes == 0:
-        return out
+        return out, 0
     word = next(
         w for w in (16, 8, 4, 2, 1)
         if row_bytes % w == 0 and v.data_ptr() % w == 0 and out.data_ptr() % w == 0
     )
     lib = _build.library()
     with torch.cuda.device(dev):
-        rc = lib.alaz_segment_expand_sorted(
-            v.data_ptr(), edge_dst.data_ptr(), out.data_ptr(), num_nodes, e,
-            row_bytes, word, _stream(dev),
+        rc = getattr(lib, f"alaz_{name}")(
+            v.data_ptr(), ids.data_ptr(), out.data_ptr(), num_nodes, e, row_bytes, word,
+            _stream(dev),
         )
-    _build.check(rc, "segment_expand_sorted")
-    segment_expand_sorted.launches += 1
+    _build.check(rc, name)
+    return out, 1
+
+
+# ---------------------------------------------------------------------------
+# K3: row gather over unsorted ids
+# ---------------------------------------------------------------------------
+
+
+def gather_rows_banded_plain(v: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """K3's plain version: the row gather ``v[ids]``."""
+    return v[ids]
+
+
+def gather_rows_banded(v: torch.Tensor, ids: torch.Tensor, num_nodes: int) -> torch.Tensor:
+    """out[e] = v[ids[e]] for UNSORTED int32 ``ids`` (the src side of a
+    dst-sorted window); exact in any dtype, whatever the ids' locality.
+    ``num_nodes`` is v's row count (the backward's scatter size)."""
+    _forward_only(v)
+    if v.device.type == "cpu":
+        return gather_rows_banded_plain(v, ids)
+    out, launched = _row_gather_cuda("gather_rows_banded", v, ids, num_nodes)
+    gather_rows_banded.launches += launched
     return out
 
 
-segment_expand_sorted.launches = 0
+gather_rows_banded.launches = 0
 
-KERNELS = (scatter_sum_sorted, segment_expand_sorted)
+
+# ---------------------------------------------------------------------------
+# K4: fused gather + sorted segment sum
+# ---------------------------------------------------------------------------
+
+
+def pallas_gather_scatter_sum_plain(
+    x: torch.Tensor,
+    edge_src: torch.Tensor,
+    edge_dst: torch.Tensor,
+    num_nodes: int,
+    edge_weight: torch.Tensor | None = None,
+    block_starts: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """K4's plain version with the kernel's semantics: each message
+    ``x[src]·w`` is formed in x's dtype, summed in f32, rounded once to
+    x's dtype."""
+    msgs = x[edge_src]
+    if edge_weight is not None:
+        msgs = msgs * edge_weight.to(msgs.dtype)[:, None]
+    return scatter_sum_sorted_plain(msgs, edge_dst, num_nodes, x.dtype, block_starts)
+
+
+def pallas_gather_scatter_sum(
+    x: torch.Tensor,
+    edge_src: torch.Tensor,
+    edge_dst: torch.Tensor,
+    num_nodes: int,
+    edge_weight: torch.Tensor | None = None,
+    block_starts: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """out[d] = Σ_{e: dst[e]=d} w[e]·x[src[e]] for dst-SORTED int32
+    ``edge_dst`` and any int32 ``edge_src``; the messages are never
+    stored. The weight is cast to x's dtype and each product rounded to
+    it before the f32 sum (the JAX package's rounding); the result is in
+    x's dtype (f32 for an x of another dtype, cast back). ``block_starts``
+    are K1's row starts: COO and blocked rows agree bit for bit."""
+    _forward_only(x, edge_weight)
+    dtype = x.dtype
+    if x.dtype not in _DTYPE_CODE:
+        x = x.float()
+    if x.device.type == "cpu":
+        out = pallas_gather_scatter_sum_plain(
+            x, edge_src, edge_dst, num_nodes, edge_weight, block_starts
+        )
+    else:
+        out = _gather_scatter_sum_cuda(x, edge_src, edge_dst, num_nodes, edge_weight, block_starts)
+    return out if out.dtype == dtype else out.to(dtype)
+
+
+def _gather_scatter_sum_cuda(x, edge_src, edge_dst, num_nodes, edge_weight, block_starts):
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"pallas_gather_scatter_sum: no kernel for device {dev}")
+    _cuda_input(x, "x", dev, 2)
+    _cuda_input(edge_src, "edge_src", dev, 1, torch.int32)
+    _cuda_input(edge_dst, "edge_dst", dev, 1, torch.int32)
+    e = edge_dst.shape[0]
+    if edge_src.shape[0] != e:
+        raise ValueError(f"edge_src has {edge_src.shape[0]} ids for {e} edges")
+    w_ptr = None
+    if edge_weight is not None:
+        _cuda_input(edge_weight, "edge_weight", dev, 1)
+        if edge_weight.shape[0] != e:
+            raise ValueError(f"edge_weight has {edge_weight.shape[0]} entries for {e} edges")
+        edge_weight = edge_weight.to(x.dtype)
+        w_ptr = edge_weight.data_ptr()
+    n_x, f = x.shape
+    if max(e, f, n_x, num_nodes) >= 2**31:
+        raise ValueError("pallas_gather_scatter_sum: dimensions must fit int32")
+    row_start = _row_starts(edge_dst, num_nodes, block_starts)
+    out = torch.empty((num_nodes, f), dtype=x.dtype, device=dev)
+    vec = 4 if f % 4 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0 else 1
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        rc = lib.alaz_gather_scatter_sum(
+            x.data_ptr(), edge_src.data_ptr(), edge_dst.data_ptr(), w_ptr,
+            row_start.data_ptr(), out.data_ptr(), num_nodes, n_x, f, e,
+            _DTYPE_CODE[x.dtype], vec, _stream(dev),
+        )
+    _build.check(rc, "pallas_gather_scatter_sum")
+    pallas_gather_scatter_sum.launches += 1
+    return out
+
+
+pallas_gather_scatter_sum.launches = 0
+
+KERNELS = (
+    scatter_sum_sorted, segment_expand_sorted, gather_rows_banded, pallas_gather_scatter_sum,
+)
 
 
 def reset_launch_counts() -> None:

@@ -9,11 +9,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from alaz_tpu_torch.graph.features import (
-    EDGE_FEATURE_DIM,
-    NODE_FEATURE_DIM,
-    apply_renumber,
-)
+from alaz_tpu_torch.graph.builder import apply_renumber, cluster_renumber
+from alaz_tpu_torch.graph.features import EDGE_FEATURE_DIM, NODE_FEATURE_DIM
 from alaz_tpu_torch.graph.snapshot import GraphBatch
 
 
@@ -30,14 +27,12 @@ def example_batch(
     ``structure``: "uniform" draws src/dst independently; "community"
     mimics a real service map: pods belong to teams and call their own
     team's services ~90% of the time, and node ids are shuffled so the
-    draw carries no accidental locality. ``layout``: only "random" (ids
-    as drawn); "clustered" needs the cluster renumbering pass, which
-    arrives with the banded-gather kernel."""
-    if layout != "random":
-        raise NotImplementedError(
-            f"layout={layout!r}: the clustered layout comes with the "
-            "banded-gather kernel (ROADMAP.md, kernels still to port)"
-        )
+    draw carries no accidental locality. ``layout``: "random" keeps ids
+    as drawn; "clustered" applies ``graph/builder.py cluster_renumber``
+    so sources that call the same destination take contiguous ids (the
+    layout ``src_gather="banded"`` is meant for)."""
+    if layout not in ("random", "clustered"):
+        raise ValueError(f"layout={layout!r}: expected 'random' or 'clustered'")
     if structure not in ("uniform", "community"):
         raise ValueError(f"structure={structure!r}: expected 'uniform' or 'community'")
     rng = np.random.default_rng(seed)
@@ -74,6 +69,11 @@ def example_batch(
         edge_dst = rng.integers(n_pods, n_nodes, n_edges).astype(np.int32)
     edge_type = rng.integers(1, 9, n_edges).astype(np.int32)
     edge_feats = rng.normal(size=(n_edges, EDGE_FEATURE_DIM)).astype(np.float32)
+    if layout == "clustered":
+        perm = cluster_renumber(edge_src, edge_dst, n_nodes)
+        edge_src, edge_dst, node_feats, node_type = apply_renumber(
+            perm, edge_src, edge_dst, node_feats, node_type
+        )
     return GraphBatch.build(
         node_feats=node_feats,
         node_type=node_type,

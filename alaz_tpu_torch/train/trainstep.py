@@ -32,9 +32,10 @@ def score_batch(
     cfg: ModelConfig, params, batch: GraphBatch, score_fn: Callable | None = None, device=None
 ) -> dict:
     """Score one window; outputs come back as numpy (``node_h`` widened
-    to f32, since numpy has no bf16). The batch ships in the config's
-    edge layout."""
+    to f32, since numpy has no bf16; a scalar output such as GAT's
+    ``attn_clamp_saturation`` as a numpy scalar). The batch ships in the
+    config's edge layout."""
     if score_fn is None:
         score_fn = make_score_fn(cfg, device)
     out = score_fn(params, batch.device_arrays(cfg.edge_layout))
-    return {k: v.float().cpu().numpy() for k, v in out.items()}
+    return {k: v.float().cpu().numpy()[()] for k, v in out.items()}

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's scoring path on one NVIDIA H100.
+"""Drive the PyTorch port's scoring paths on one NVIDIA H100.
 
 Run from the root of a checkout:
 
@@ -7,20 +7,34 @@ Run from the root of a checkout:
 
 Phases, each raising on failure:
 
-1. build    -- compile ``alaz_tpu_torch/csrc/segment.cu`` with nvcc into
-               ``build/alaz_tpu_torch/`` and print ptxas's register,
-               shared-memory and spill lines;
-2. kernels  -- each hand-written kernel against its plain PyTorch version,
-               on the card, at the scoring path's shapes (E=1,048,576
-               edges, N=131,072 nodes, F=128);
-3. slice    -- three synthetic windows of bucket n131072xe1048576 scored
-               through ``WindowScorer`` under the default ``ModelConfig``
-               (GraphSAGE, hidden 128, 2 layers, bf16, kernels on), with
-               the kernels' launch counts read around that run and one
-               window held against the same model on the plain versions;
-4. numbers  -- kernel times (CUDA events), bounds, plain-version and
-               library-call times, per-window score time, and a profile of
-               the device time by kernel over scored windows.
+1. build     -- compile ``alaz_tpu_torch/csrc/segment.cu`` with nvcc into
+                ``build/alaz_tpu_torch/`` and print ptxas's register,
+                shared-memory and spill lines;
+2. layout    -- the GAT windows' ``cluster_renumber`` pass: its host
+                seconds per window and the src-locality gauges of each
+                window with and without it;
+3. kernels   -- each hand-written kernel against its plain PyTorch version,
+                on the card, at the scoring paths' shapes (E=1,048,576
+                edges, N=131,072 nodes, F=128): K1 and K2 on the uniform
+                GraphSAGE window's dst ids, K3 on the clustered GAT window's
+                and on the uniform window's src ids, K4 on the GAT window;
+4. slice     -- three uniform windows of bucket n131072xe1048576 scored
+                through ``WindowScorer`` under the default ``ModelConfig``
+                (GraphSAGE, hidden 128, 2 layers, bf16, kernels on), with
+                the kernels' launch counts read around that run and one
+                window held against the same model on the plain versions;
+5. gat slice -- three community windows laid out by ``cluster_renumber``,
+                same bucket, scored through ``WindowScorer`` under
+                ``ModelConfig(model="gat", src_gather="banded")`` (hidden
+                128, 4 heads, 2 layers, bf16, kernels on), launch counts
+                read around that run, one window held against the plain
+                versions and against ``src_gather="xla"`` (bit for bit);
+6. op path   -- the public ``ops.gather_scatter_sum`` (K4) over the GAT
+                windows' edges, launch counts read around those calls;
+7. numbers   -- kernel times (CUDA events), bounds, plain-version and
+                library-call times, per-window score time of both models,
+                and a profile of the device time by kernel over scored
+                windows of each.
 
 Output: JSON lines for each phase, then the kernels' JSON line, the
 card's name and power limit, and last the result line
@@ -31,23 +45,29 @@ nonzero and prints no result. It imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 E_MAIN = 1_048_576  # edges of the main path's bucket
 N_MAIN = 131_072  # nodes of the main path's bucket
 F_MAIN = 128  # hidden width of the default ModelConfig
 WINDOW = dict(n_pods=100_000, n_svcs=10_000, n_edges=E_MAIN)  # bench.py's default window
+# bench.py's GAT run: community structure, cluster_renumber layout
+GAT_WINDOW = dict(WINDOW, structure="community", layout="clustered")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores
 K1_SOURCE = "alaz_tpu_torch/csrc/segment.cu"
 K1_REPLACES = "alaz_tpu/ops/pallas_segment.py:184"  # scatter_sum_sorted (pallas_call :170)
 K2_REPLACES = "alaz_tpu/ops/pallas_segment.py:346"  # segment_expand_sorted (pallas_call :332)
+K3_REPLACES = "alaz_tpu/ops/pallas_segment.py:541"  # gather_rows_banded (pallas_call :527)
+K4_REPLACES = "alaz_tpu/ops/pallas_segment.py:588"  # pallas_gather_scatter_sum (pallas_call :170)
 
 
 def emit(tag: str, obj) -> None:
@@ -57,6 +77,13 @@ def emit(tag: str, obj) -> None:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {what}")
+
+
+def _counts(k1: int, k2: int, k3: int, k4: int) -> dict:
+    return {
+        "scatter_sum_sorted": k1, "segment_expand_sorted": k2,
+        "gather_rows_banded": k3, "pallas_gather_scatter_sum": k4,
+    }
 
 
 # -- phase 1 ----------------------------------------------------------------
@@ -78,6 +105,40 @@ def phase_build() -> None:
 # -- phase 2 ----------------------------------------------------------------
 
 
+def phase_layout(gat_batches, seeds, window: dict = GAT_WINDOW) -> dict:
+    """Re-draw each GAT window in its random layout (the same draws), time
+    ``cluster_renumber`` over its real edges, check that the pass gives the
+    clustered window's edges, and read the locality gauges of both."""
+    from alaz_tpu_torch.graph.builder import cluster_renumber, src_locality_gauges
+    from alaz_tpu_torch.replay.synth import example_batch
+
+    renumber_s, gauges = [], []
+    for seed, clustered in zip(seeds, gat_batches):
+        raw = example_batch(**dict(window, layout="random"), seed=seed)
+        n = raw.n_edges
+        t0 = time.perf_counter()
+        perm = cluster_renumber(raw.edge_src[:n], raw.edge_dst[:n], raw.n_nodes)
+        renumber_s.append(time.perf_counter() - t0)
+        order = np.argsort(perm[raw.edge_dst[:n]], kind="stable")
+        require(
+            np.array_equal(perm[raw.edge_src[:n]][order], clustered.edge_src[:n]),
+            f"seed {seed}: cluster_renumber does not give the clustered window's src ids",
+        )
+        before = src_locality_gauges(raw.edge_src[:n], raw.n_nodes)
+        after = src_locality_gauges(clustered.edge_src[:n], clustered.n_nodes)
+        gauges.append({
+            "seed": seed,
+            "without_renumber": {"band_windows": before[0], "straggler_fraction": before[1]},
+            "with_renumber": {"band_windows": after[0], "straggler_fraction": after[1]},
+        })
+    out = {"cluster_renumber_s": renumber_s, "src_locality_gauges": gauges}
+    emit("layout", out)
+    return out
+
+
+# -- phase 3 ----------------------------------------------------------------
+
+
 def _k1_tolerance(ref: torch.Tensor) -> torch.Tensor:
     """Kernel and plain version both sum in f32, in another order. f32 out:
     within 1e-5 of the output's largest magnitude. bf16 out: the two f32
@@ -93,9 +154,9 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize()
 
 
-def phase_kernels(batch, dev: torch.device) -> dict:
-    """Each kernel against its plain version on the window's dst-sorted
-    edge ids (the main path's). Returns the max abs error per case."""
+def phase_kernels(batch, gat_batch, dev: torch.device) -> dict:
+    """Each kernel against its plain version on the windows' edge ids (the
+    main paths'). Returns the max abs error per case."""
     from alaz_tpu_torch.ops import segment_kernels as K
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -123,6 +184,7 @@ def phase_kernels(batch, dev: torch.device) -> dict:
             torch.equal(outs["coo"][: batch.n_nodes], outs["blocked"][: batch.n_nodes]),
             f"{name}: blocked rows differ from COO rows",
         )
+    del msgs32
     for name, dtype in (("k2_bf16", torch.bfloat16), ("k2_f32", torch.float32)):
         v = torch.randn((n_pad, F_MAIN), generator=gen, device=dev).to(dtype)
         got = K.segment_expand_sorted(v, edge_dst, n_pad)
@@ -130,23 +192,58 @@ def phase_kernels(batch, dev: torch.device) -> dict:
         _sync(dev)
         require(torch.equal(got, ref), f"{name} is not bit-exact")
         errs[name] = float((got.float() - ref.float()).abs().max())
+
+    # K3 on the clustered GAT window's src ids and on the uniform window's:
+    # the result must not depend on the ids' locality
+    for ids_name, b in (("clustered", gat_batch), ("uniform", batch)):
+        src = torch.as_tensor(b.edge_src, device=dev)
+        for dname, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            v = torch.randn((b.n_pad, F_MAIN), generator=gen, device=dev).to(dtype)
+            got = K.gather_rows_banded(v, src, b.n_pad)
+            ref = K.gather_rows_banded_plain(v, src)
+            _sync(dev)
+            require(torch.equal(got, ref), f"k3_{dname}_{ids_name} is not bit-exact")
+            errs[f"k3_{dname}_{ids_name}"] = float((got.float() - ref.float()).abs().max())
+
+    # K4 on the GAT window, with and without weights; COO and blocked row
+    # starts must give the same rows bit for bit
+    src = torch.as_tensor(gat_batch.edge_src, device=dev)
+    dst = torch.as_tensor(gat_batch.edge_dst, device=dev)
+    gbs = torch.as_tensor(gat_batch.block_starts(), device=dev)
+    w = torch.rand(dst.shape[0], generator=gen, device=dev) + 0.5
+    for dname, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        x = torch.randn((gat_batch.n_pad, F_MAIN), generator=gen, device=dev).to(dtype)
+        for wname, ww in (("w", w), ("now", None)):
+            coo = K.pallas_gather_scatter_sum(x, src, dst, gat_batch.n_pad, ww)
+            blk = K.pallas_gather_scatter_sum(x, src, dst, gat_batch.n_pad, ww, gbs)
+            ref = K.pallas_gather_scatter_sum_plain(x, src, dst, gat_batch.n_pad, ww)
+            _sync(dev)
+            err = (coo.float() - ref.float()).abs()
+            name = f"k4_{dname}_{wname}"
+            require(coo.dtype == dtype, f"{name}: dtype {coo.dtype}")
+            require(bool((err <= _k1_tolerance(ref)).all()), f"{name} disagrees with its plain version")
+            require(
+                torch.equal(coo[: gat_batch.n_nodes], blk[: gat_batch.n_nodes]),
+                f"{name}: blocked rows differ from COO rows",
+            )
+            errs[name] = float(err.max())
     emit("kernels_vs_plain", {
-        "tolerance": "K2 bit-exact; K1 f32 within 1e-5 of max|out|; K1 bf16 within one bf16 ulp",
+        "tolerance": "K2, K3 bit-exact; K1, K4 f32 within 1e-5 of max|out|, bf16 within one bf16 ulp",
         "max_abs_err": errs,
     })
     return errs
 
 
-# -- phase 3 ----------------------------------------------------------------
+# -- phases 4 and 5 -----------------------------------------------------------
 
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the scoring path through the kernels' plain versions (for the
-    reference forward only; restored on exit)."""
+    """Route the scoring paths through the kernels' plain versions (for the
+    reference forwards only; restored on exit)."""
     from alaz_tpu_torch.ops import segment_kernels as K
 
-    saved = K.scatter_sum_sorted, K.segment_expand_sorted
+    saved = K.scatter_sum_sorted, K.segment_expand_sorted, K.gather_rows_banded
 
     def scatter(msgs, edge_dst, num_nodes, out_dtype=None, block_starts=None):
         return K.scatter_sum_sorted_plain(
@@ -155,34 +252,26 @@ def plain_kernels():
 
     K.scatter_sum_sorted = scatter
     K.segment_expand_sorted = lambda v, edge_dst, num_nodes: K.segment_expand_sorted_plain(v, edge_dst)
+    K.gather_rows_banded = lambda v, ids, num_nodes: K.gather_rows_banded_plain(v, ids)
     try:
         yield
     finally:
-        K.scatter_sum_sorted, K.segment_expand_sorted = saved
+        K.scatter_sum_sorted, K.segment_expand_sorted, K.gather_rows_banded = saved
 
 
-def phase_slice(batches, device: str = "cuda") -> tuple:
-    """Score the windows through WindowScorer, serially; read the kernels'
-    launch counts around exactly that run. Returns (summary, scorer)."""
-    from alaz_tpu_torch.config import ModelConfig
+def _score_windows(cfg, batches, device: str):
+    """WindowScorer over the windows, serially, with the kernels' launch
+    counts set to 0 just before and read just after."""
     from alaz_tpu_torch.models.registry import init_params
     from alaz_tpu_torch.ops import segment_kernels as K
     from alaz_tpu_torch.runtime.scorer import WindowScorer
-    from alaz_tpu_torch.train.trainstep import make_score_fn
 
-    cfg = ModelConfig()
-    require(
-        (cfg.model, cfg.hidden_dim, cfg.num_layers, cfg.dtype, cfg.use_pallas, cfg.edge_layout)
-        == ("graphsage", 128, 2, "bfloat16", True, "coo"),
-        f"unexpected default ModelConfig {cfg}",
-    )
     params = init_params(cfg, key=0, device=device)
     scorer = WindowScorer(cfg, params, device=device)
     on_card = scorer.device.type == "cuda"
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-
     K.reset_launch_counts()
     window_s, all_scores = [], []
     for b in batches:
@@ -192,45 +281,69 @@ def phase_slice(batches, device: str = "cuda") -> tuple:
         all_scores.append(scores)
     launches = K.launch_counts()
     peak_bytes = torch.cuda.max_memory_allocated() if on_card else None
-
     for b, s in zip(batches, all_scores):
         require(s.shape == (b.n_edges,), f"scores shape {s.shape}")
         require(bool(((s >= 0) & (s <= 1)).all()) and bool(torch.isfinite(torch.from_numpy(s)).all()),
                 "scores not finite in [0, 1]")
-    if on_card:
-        n = len(batches)
-        require(launches == {"scatter_sum_sorted": 2 * n, "segment_expand_sorted": n},
-                f"expected 2 K1 and 1 K2 launches per forward, got {launches} for {n} forwards")
+    return scorer, on_card, window_s, all_scores, launches, peak_bytes
 
-    # one window against the same model on the plain versions: kernels and
-    # plain versions differ only in K1's f32 summation order, so logits may
-    # differ where a bf16 rounding flipped; held at four bf16 ulps of the
-    # largest logit (2^-6·max|ref|)
+
+def _vs_plain(cfg, scorer, batch, device) -> tuple:
+    """One window against the same model on the plain versions: kernels and
+    plain versions differ only in K1's f32 summation order, so logits may
+    differ where a bf16 rounding flipped; held at four bf16 ulps of the
+    largest logit (2^-6·max|ref|). Returns (errors, the kernels' outputs)."""
+    from alaz_tpu_torch.train.trainstep import make_score_fn
+
     score_fn = make_score_fn(cfg, device)
-    arrays = batches[0].device_arrays(cfg.edge_layout)
+    arrays = batch.device_arrays(cfg.edge_layout)
     got = score_fn(scorer.params, arrays)
     with plain_kernels():
         ref = score_fn(scorer.params, arrays)
     errs = {}
-    for key, n_real in (("edge_logits", batches[0].n_edges), ("node_logits", batches[0].n_nodes)):
+    for key, n_real in (("edge_logits", batch.n_edges), ("node_logits", batch.n_nodes)):
         g, r = got[key][:n_real], ref[key][:n_real]
         err = float((g - r).abs().max())
         bound = 2.0**-6 * float(r.abs().max())
         require(err <= bound, f"{key}: kernels vs plain versions differ by {err} > {bound}")
         errs[key] = {"max_abs_err": err, "bound": bound}
+    return errs, got
 
+
+def _tf32() -> dict:
+    return {
+        "matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+        "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+    }
+
+
+def phase_slice(batches, device: str = "cuda") -> tuple:
+    """GraphSAGE: score the windows through WindowScorer and read the
+    kernels' launch counts around exactly that run. Returns (summary,
+    scorer)."""
+    from alaz_tpu_torch.config import ModelConfig
+
+    cfg = ModelConfig()
+    require(
+        (cfg.model, cfg.hidden_dim, cfg.num_layers, cfg.dtype, cfg.use_pallas, cfg.edge_layout)
+        == ("graphsage", 128, 2, "bfloat16", True, "coo"),
+        f"unexpected default ModelConfig {cfg}",
+    )
+    scorer, on_card, window_s, all_scores, launches, peak_bytes = _score_windows(cfg, batches, device)
+    n = len(batches)
+    if on_card:
+        require(launches == _counts(2 * n, n, 0, 0),
+                f"expected 2 K1 and 1 K2 launches per forward, got {launches} for {n} forwards")
+    errs, _ = _vs_plain(cfg, scorer, batches[0], device)
     out = {
         "bucket": batches[0].bucket_key,
-        "windows": len(batches),
+        "windows": n,
         "edges_per_window": [b.n_edges for b in batches],
         "window_s": window_s,
         "launches": launches,
         "vs_plain_versions": errs,
-        "score_mean": float(sum(float(s.mean()) for s in all_scores) / len(all_scores)),
-        "tf32": {
-            "matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
-            "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
-        },
+        "score_mean": float(sum(float(s.mean()) for s in all_scores) / n),
+        "tf32": _tf32(),
     }
     if on_card:
         out["max_memory_allocated_bytes"] = peak_bytes
@@ -238,7 +351,93 @@ def phase_slice(batches, device: str = "cuda") -> tuple:
     return out, scorer
 
 
-# -- phase 4 ----------------------------------------------------------------
+def phase_gat_slice(batches, device: str = "cuda") -> tuple:
+    """GAT over cluster-renumbered windows with the banded src gather:
+    score through WindowScorer, read the launch counts around that run,
+    hold one window against the plain versions and against the plain src
+    gather (``src_gather="xla"``), which must agree bit for bit since K3
+    is exact. Returns (summary, scorer)."""
+    from alaz_tpu_torch.config import ModelConfig
+    from alaz_tpu_torch.train.trainstep import make_score_fn
+
+    cfg = ModelConfig(model="gat", src_gather="banded")
+    require(
+        (cfg.hidden_dim, cfg.num_heads, cfg.num_layers, cfg.dtype, cfg.use_pallas,
+         cfg.edge_layout, cfg.edge_feat_dim_in)
+        == (128, 4, 2, "bfloat16", True, "coo", 23),
+        f"unexpected GAT ModelConfig {cfg}",
+    )
+    scorer, on_card, window_s, all_scores, launches, peak_bytes = _score_windows(cfg, batches, device)
+    n = len(batches)
+    if on_card:
+        require(launches == _counts(2 * n, 3 * n, 3 * n, 0),
+                f"expected 2 K1, 3 K2 and 3 K3 launches per forward, got {launches} for {n} forwards")
+    errs, got = _vs_plain(cfg, scorer, batches[0], device)
+    xla_cfg = dataclasses.replace(cfg, src_gather="xla")
+    xla = make_score_fn(xla_cfg, device)(scorer.params, batches[0].device_arrays(cfg.edge_layout))
+    for key in ("edge_logits", "node_logits", "node_h", "attn_clamp_saturation"):
+        require(torch.equal(got[key], xla[key]), f"gat {key}: src_gather banded differs from xla")
+    out = {
+        "bucket": batches[0].bucket_key,
+        "windows": n,
+        "edges_per_window": [b.n_edges for b in batches],
+        "window_s": window_s,
+        "launches": launches,
+        "vs_plain_versions": errs,
+        "banded_equals_xla": True,
+        "attn_clamp_saturation": float(got["attn_clamp_saturation"]),
+        "score_mean": float(sum(float(s.mean()) for s in all_scores) / n),
+        "tf32": _tf32(),
+    }
+    if on_card:
+        out["max_memory_allocated_bytes"] = peak_bytes
+    emit("gat_slice", out)
+    return out, scorer
+
+
+# -- phase 6 ----------------------------------------------------------------
+
+
+def phase_op_path(batches, device: str = "cuda") -> dict:
+    """The public ``ops.gather_scatter_sum`` as a caller uses it (kernels
+    on by default) over each GAT window's edges with random bf16 node
+    states and weights: launch counts read around those calls, the output
+    held to K4's wrapper bit for bit (deterministic) and to its plain
+    version at K1's tolerance."""
+    from alaz_tpu_torch import ops
+    from alaz_tpu_torch.ops import segment_kernels as K
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    inputs = []
+    for b in batches:
+        inputs.append((
+            torch.randn((b.n_pad, F_MAIN), generator=gen, device=dev).bfloat16(),
+            torch.as_tensor(b.edge_src, device=dev),
+            torch.as_tensor(b.edge_dst, device=dev),
+            b.n_pad,
+            torch.rand(b.e_pad, generator=gen, device=dev) + 0.5,
+        ))
+    K.reset_launch_counts()
+    outs = [ops.gather_scatter_sum(*args) for args in inputs]
+    launches = K.launch_counts()
+    if dev.type == "cuda":
+        require(launches == _counts(0, 0, 0, len(batches)),
+                f"expected one K4 launch per call, got {launches}")
+    errs = []
+    for args, out in zip(inputs, outs):
+        require(out.dtype == torch.bfloat16 and out.shape == (args[3], F_MAIN), f"op output {out.dtype} {out.shape}")
+        require(torch.equal(out, K.pallas_gather_scatter_sum(*args)), "ops.gather_scatter_sum is not K4's result")
+        ref = K.pallas_gather_scatter_sum_plain(*args)
+        err = (out.float() - ref.float()).abs()
+        require(bool((err <= _k1_tolerance(ref)).all()), "ops.gather_scatter_sum disagrees with K4's plain version")
+        errs.append(float(err.max()))
+    out = {"calls": len(batches), "launches": launches, "max_abs_err": errs}
+    emit("op_path", out)
+    return out
+
+
+# -- phase 7 ----------------------------------------------------------------
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -262,10 +461,18 @@ def _bound(bytes_moved: float, flops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_numbers(launches: dict, errs: dict, scorer, batches) -> list:
+def _kernel_entry(name, replaces, launches, err, ms, plain_ms, bound, library_ms) -> dict:
+    return {
+        "name": name, "route": "cuda", "source": K1_SOURCE, "replaces": replaces,
+        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms,
+    }
+
+
+def numbers_k1_k2(batches, dev) -> dict:
+    """K1 and K2 as the GraphSAGE path calls them (bf16, F=128, COO)."""
     from alaz_tpu_torch.ops import segment_kernels as K
 
-    dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     edge_dst = torch.as_tensor(batches[0].edge_dst, device=dev)
     bs = torch.as_tensor(batches[0].block_starts(), device=dev)
@@ -281,14 +488,12 @@ def phase_numbers(launches: dict, errs: dict, scorer, batches) -> list:
     acc = torch.zeros((N_MAIN, f), dtype=torch.bfloat16, device=dev)
     k1_lib_ms = time_ms(lambda: acc.index_add_(0, edge_dst, msgs))
     k1_bytes = e * (f * 2 + 4) + N_MAIN * f * 2 + (N_MAIN // 128 + 1) * 4
-    k1_bound, k1_by = _bound(k1_bytes, e * f)
 
     k2_ms = time_ms(lambda: K.segment_expand_sorted(v, edge_dst, N_MAIN))
     k2_plain_ms = time_ms(lambda: K.segment_expand_sorted_plain(v, edge_dst))
     k2_lib_ms = time_ms(lambda: torch.index_select(v, 0, idx64))
     rows_read = int(torch.unique(edge_dst).numel())
     k2_bytes = e * 4 + e * f * 2 + rows_read * f * 2
-    k2_bound, k2_by = _bound(k2_bytes, 0)
 
     # the other K1 variants the ops expose, for the record
     variants = {
@@ -302,22 +507,78 @@ def phase_numbers(launches: dict, errs: dict, scorer, batches) -> list:
         "k1_nonempty_blocks": int(((bs[1:] - bs[:-1]) > 0).sum()),
     }
     emit("kernel_variants", variants)
+    return {
+        "k1": (k1_ms, k1_plain_ms, _bound(k1_bytes, e * f), k1_lib_ms),
+        "k2": (k2_ms, k2_plain_ms, _bound(k2_bytes, 0), k2_lib_ms),
+    }
 
-    # bounds of the TPU kernels still to port, at the same window's shapes
-    # (bf16, F=128): K3 gathers v[src]; K4 fuses that gather with K1
-    src_rows = int(torch.unique(torch.as_tensor(batches[0].edge_src, device=dev)).numel())
-    k3_bytes = e * 4 + e * f * 2 + src_rows * f * 2
-    k4_bytes = 2 * e * 4 + src_rows * f * 2 + N_MAIN * f * 2
-    emit("bounds_still_to_port", {
-        "gather_rows_banded": {"bytes": k3_bytes, "bound_ms": _bound(k3_bytes, 0)[0]},
-        "pallas_gather_scatter_sum": {"bytes": k4_bytes, "bound_ms": _bound(k4_bytes, e * f)[0]},
-        "src_rows": src_rows,
-    })
 
-    # the window, end to end and by part (steady state: library built,
-    # buffers warm)
+def numbers_k3_k4(batches, gat_batches, dev) -> dict:
+    """K3 as the GAT path calls it (bf16 [N, 128] rows gathered by src), on
+    the clustered GAT window's ids and on the uniform window's; K4 on the
+    GAT window (bf16, F=128, weighted), with ``torch.sparse.mm`` over a CSR
+    of the same edges as its library call."""
+    from alaz_tpu_torch.ops import segment_kernels as K
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    f = F_MAIN
+    v = torch.randn((N_MAIN, f), generator=gen, device=dev).bfloat16()
+    k3 = {}
+    for ids_name, b in (("clustered", gat_batches[0]), ("uniform", batches[0])):
+        src = torch.as_tensor(b.edge_src, device=dev)
+        src64 = src.long()
+        e = src.shape[0]
+        rows_read = int(torch.unique(src).numel())
+        k3[ids_name] = {
+            "ms": time_ms(lambda: K.gather_rows_banded(v, src, N_MAIN)),
+            "plain_ms": time_ms(lambda: K.gather_rows_banded_plain(v, src)),
+            "library_ms": time_ms(lambda: torch.index_select(v, 0, src64)),
+            "src_rows_read": rows_read,
+            "bound": _bound(e * 4 + e * f * 2 + rows_read * f * 2, 0),
+        }
+    emit("k3_by_ids", {k: dict(d, bound=list(d["bound"])) for k, d in k3.items()})
+
+    b = gat_batches[0]
+    src = torch.as_tensor(b.edge_src, device=dev)
+    dst = torch.as_tensor(b.edge_dst, device=dev)
+    e = dst.shape[0]
+    x = torch.randn((N_MAIN, f), generator=gen, device=dev).bfloat16()
+    w = (torch.rand(e, generator=gen, device=dev) + 0.5).bfloat16()
+    k4_ms = time_ms(lambda: K.pallas_gather_scatter_sum(x, src, dst, N_MAIN, w))
+    k4_plain_ms = time_ms(lambda: K.pallas_gather_scatter_sum_plain(x, src, dst, N_MAIN, w))
+    rows_read = int(torch.unique(src).numel())
+    k4_bytes = 2 * e * 4 + e * 2 + rows_read * f * 2 + N_MAIN * f * 2 + (N_MAIN // 128 + 1) * 4
+    # library call: one CSR product out = A @ x, A[d, s] = Σ w over the
+    # edges s→d, built once outside the timing (crow: each row's start in
+    # the dst-sorted edges, col: src, values: w)
+    crow = torch.searchsorted(
+        dst, torch.arange(N_MAIN + 1, dtype=torch.int32, device=dev), out_int32=True
+    ).long()
+    lib = {"call": "torch.sparse.mm(csr[N, N], x[N, 128])"}
+    try:
+        csr = torch.sparse_csr_tensor(crow, src.long(), w, size=(N_MAIN, N_MAIN))
+        lib["ms"] = time_ms(lambda: torch.sparse.mm(csr, x))
+        lib["dtype"] = "bfloat16"
+    except RuntimeError as exc:
+        lib["bf16_refused"] = str(exc).splitlines()[0][:200]
+        csr = torch.sparse_csr_tensor(crow, src.long(), w.float(), size=(N_MAIN, N_MAIN))
+        x32 = x.float()
+        lib["ms"] = time_ms(lambda: torch.sparse.mm(csr, x32))
+        lib["dtype"] = "float32 (bf16 refused)"
+    emit("k4_library", lib)
+    return {
+        "k3": k3,
+        "k4": (k4_ms, k4_plain_ms, _bound(k4_bytes, 2 * e * f), lib["ms"]),
+    }
+
+
+def numbers_window(tag: str, scorer, batches, apply, other_cfg=None) -> dict:
+    """One model's window, end to end and by part (steady state: library
+    built, buffers warm): score time, transfer, and the forward with the
+    graph already on the device (also under ``other_cfg`` if given)."""
     from alaz_tpu_torch.convert import graph_to_torch
 
+    dev = torch.device("cuda")
     cfg = scorer.cfg
     steady = []
     for i in range(6):
@@ -333,40 +594,64 @@ def phase_numbers(launches: dict, errs: dict, scorer, batches) -> list:
         graph = graph_to_torch(arrays, dev)
         torch.cuda.synchronize()
         transfer.append(time.perf_counter() - t0)
-    from alaz_tpu_torch.models.graphsage import apply
 
-    def forward():
-        with torch.inference_mode():
-            apply(scorer.params, graph, cfg)
+    def forward_ms(c) -> float:
+        def forward():
+            with torch.inference_mode():
+                apply(scorer.params, graph, c)
 
-    forward_ms = time_ms(forward, iters=10, warmup=2)
+        return time_ms(forward, iters=10, warmup=2)
+
     score_s = statistics.median(steady)
-    emit("window", {
+    out = {
         "score_s_median": score_s,
         "score_s": steady,
         "edges_per_s": batches[0].n_edges / score_s,
         "transfer_s_median": statistics.median(transfer),
-        "forward_ms": forward_ms,
-        "kernels_ms_per_forward": 2 * k1_ms + k2_ms,
-    })
+        "forward_ms": forward_ms(cfg),
+    }
+    if other_cfg is not None:
+        out[f"forward_ms_src_gather_{other_cfg.src_gather}"] = forward_ms(other_cfg)
+    emit(tag, out)
+    return out
 
+
+def phase_numbers(launches: dict, errs: dict, scorer, gat_scorer, batches, gat_batches) -> list:
+    """Times and bounds of the four kernels and of both models' windows;
+    returns the kernels' entries."""
+    from alaz_tpu_torch.models import gat, graphsage
+
+    dev = torch.device("cuda")
+    k12 = numbers_k1_k2(batches, dev)
+    k34 = numbers_k3_k4(batches, gat_batches, dev)
+    sage = numbers_window("window", scorer, batches, graphsage.apply)
+    sage["kernels_ms_per_forward"] = 2 * k12["k1"][0] + k12["k2"][0]
+    gat_win = numbers_window(
+        "gat_window", gat_scorer, gat_batches, gat.apply,
+        dataclasses.replace(gat_scorer.cfg, src_gather="xla"),
+    )
+    k3c = k34["k3"]["clustered"]
+    emit("kernels_ms_per_forward", {
+        "graphsage": sage["kernels_ms_per_forward"],
+        "gat_k3_only": 3 * k3c["ms"],
+        "gat_forward_ms": gat_win["forward_ms"],
+    })
+    total = {k: sum(p[k] for p in launches.values()) for k in _counts(0, 0, 0, 0)}
+    emit("launches_by_path", launches)
     return [
-        {
-            "name": "scatter_sum_sorted", "route": "cuda", "source": K1_SOURCE,
-            "replaces": K1_REPLACES, "launches": launches["scatter_sum_sorted"],
-            "max_abs_err": errs["k1_bf16_coo"], "ms": k1_ms, "plain_ms": k1_plain_ms,
-            "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": k1_lib_ms,
-        },
-        {
-            "name": "segment_expand_sorted", "route": "cuda", "source": K1_SOURCE,
-            "replaces": K2_REPLACES, "launches": launches["segment_expand_sorted"],
-            "max_abs_err": errs["k2_bf16"], "ms": k2_ms, "plain_ms": k2_plain_ms,
-            "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": k2_lib_ms,
-        },
+        _kernel_entry("scatter_sum_sorted", K1_REPLACES, total["scatter_sum_sorted"],
+                      errs["k1_bf16_coo"], *k12["k1"]),
+        _kernel_entry("segment_expand_sorted", K2_REPLACES, total["segment_expand_sorted"],
+                      errs["k2_bf16"], *k12["k2"]),
+        _kernel_entry("gather_rows_banded", K3_REPLACES, total["gather_rows_banded"],
+                      errs["k3_bf16_clustered"], k3c["ms"], k3c["plain_ms"], k3c["bound"],
+                      k3c["library_ms"]),
+        _kernel_entry("pallas_gather_scatter_sum", K4_REPLACES, total["pallas_gather_scatter_sum"],
+                      errs["k4_bf16_w"], *k34["k4"]),
     ]
 
 
-def phase_profile(scorer, batch, windows: int = 2) -> dict:
+def phase_profile(tag: str, scorer, batch, windows: int = 2) -> dict:
     """Device time by kernel over whole ``WindowScorer.score`` calls
     (torch.profiler, CUPTI): host-to-device copies, the torch kernels, the
     hand-written kernels and the copy back, and the device's idle share of
@@ -396,7 +681,7 @@ def phase_profile(scorer, batch, windows: int = 2) -> dict:
         "device_idle_share": 1.0 - busy_ms / wall_ms if rows else None,
         "top_ms_per_window": [[name[:90], ms, n] for name, ms, n in rows[:15]],
     }
-    emit("profile", out)
+    emit(tag, out)
     return out
 
 
@@ -420,15 +705,26 @@ def main() -> int:
     print("tf32: off (torch.backends.cuda.matmul.allow_tf32 = False, cudnn.allow_tf32 = False)")
 
     phase_build()
+    seeds = range(3)
     t0 = time.perf_counter()
-    batches = [example_batch(**WINDOW, seed=s) for s in range(3)]
-    emit("windows", {"bucket": batches[0].bucket_key, "synth_s": time.perf_counter() - t0})
-    require(batches[0].bucket_key == f"n{N_MAIN}xe{E_MAIN}", f"bucket {batches[0].bucket_key}")
+    batches = [example_batch(**WINDOW, seed=s) for s in seeds]
+    synth_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gat_batches = [example_batch(**GAT_WINDOW, seed=s) for s in seeds]
+    emit("windows", {"bucket": batches[0].bucket_key, "synth_s": synth_s,
+                     "gat_synth_s_with_renumber": time.perf_counter() - t0})
+    for b in batches + gat_batches:
+        require(b.bucket_key == f"n{N_MAIN}xe{E_MAIN}", f"bucket {b.bucket_key}")
+    phase_layout(gat_batches, seeds)
 
-    errs = phase_kernels(batches[0], torch.device("cuda"))
+    errs = phase_kernels(batches[0], gat_batches[0], torch.device("cuda"))
     sl, scorer = phase_slice(batches)
-    kernels = phase_numbers(sl["launches"], errs, scorer, batches)
-    phase_profile(scorer, batches[0])
+    gsl, gat_scorer = phase_gat_slice(gat_batches)
+    op = phase_op_path(gat_batches)
+    launches = {"graphsage": sl["launches"], "gat": gsl["launches"], "gather_scatter_sum": op["launches"]}
+    kernels = phase_numbers(launches, errs, scorer, gat_scorer, batches, gat_batches)
+    phase_profile("profile", scorer, batches[0])
+    phase_profile("gat_profile", gat_scorer, gat_batches[0])
 
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -6,9 +6,9 @@ here are the awkward ones the scoring path does not reach (odd widths,
 misaligned buffers, empty and hub rows, every K2 word size);
 ``chip_smoke.py`` covers the path's own shapes.
 
-Tolerances: K2 bit-exact. K1 sums in f32 in another order than the plain
-version: f32 output within 1e-5 of the output's largest magnitude; bf16
-output within one bf16 ulp (≤ 2^-7·|ref|) of it.
+Tolerances: K2 and K3 bit-exact. K1 and K4 sum in f32 in another order
+than the plain versions: f32 output within 1e-5 of the output's largest
+magnitude; bf16 output within one bf16 ulp (≤ 2^-7·|ref|) of it.
 """
 
 from __future__ import annotations
@@ -134,7 +134,109 @@ def test_graphsage_on_card_matches_cpu(dev):
         ref = graphsage.apply(model, graph_to_torch(batch.device_arrays(), "cpu"), cfg)
         K.reset_launch_counts()
         got = graphsage.apply(model.to(dev), graph_to_torch(batch.device_arrays(), dev), cfg)
-    assert K.launch_counts() == {"scatter_sum_sorted": 2, "segment_expand_sorted": 1}
+    assert K.launch_counts() == {
+        "scatter_sum_sorted": 2, "segment_expand_sorted": 1,
+        "gather_rows_banded": 0, "pallas_gather_scatter_sum": 0,
+    }
     for key, n in (("edge_logits", batch.n_edges), ("node_logits", batch.n_nodes)):
         r, g = ref[key][:n], got[key][:n].cpu()
         assert float((g - r).abs().max()) <= 2.0**-6 * float(r.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [4, 48, 132])
+@pytest.mark.parametrize("e", [0, 1000, 4096])
+def test_gather_rows_banded_bit_exact(dev, dtype, f, e):
+    n_pad = 512
+    ids = torch.randint(0, n_pad, (e,), dtype=torch.int32, device=dev)
+    v = torch.randn((n_pad, f), device=dev).to(dtype)
+    before = K.gather_rows_banded.launches
+    out = K.gather_rows_banded(v, ids, n_pad)
+    assert K.gather_rows_banded.launches == before + (1 if e else 0)
+    assert out.shape == (e, f) and torch.equal(out, K.gather_rows_banded_plain(v, ids))
+    flat = torch.zeros(n_pad * f + 1, dtype=dtype, device=dev)
+    flat[1:] = v.reshape(-1)
+    shifted = flat[1:].view(n_pad, f)  # rows off the 16-byte grid
+    assert torch.equal(K.gather_rows_banded(shifted, ids, n_pad), out)
+
+
+def test_gather_rows_banded_out_of_range_id_gives_zero_row(dev):
+    v = torch.randn((256, 128), device=dev).bfloat16()
+    ids = torch.tensor([5, 256, -1, 7], dtype=torch.int32, device=dev)
+    out = K.gather_rows_banded(v, ids, 256)
+    assert torch.equal(out[0], v[5]) and torch.equal(out[3], v[7])
+    assert float(out[1:3].float().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [4, 48, 132])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("hub", [False, True])
+def test_gather_scatter_sum_matches_plain(dev, dtype, f, weighted, hub):
+    """Odd widths, E off the 128 grid, empty dst blocks (the upper half of
+    the rows), and a hub row of 10,000 edges."""
+    n_pad, n_x = 512, 300
+    e = 10_000 + 1000 if hub else 3000 - 37
+    dst = _sorted_dst(n_pad, e, f)
+    if hub:
+        dst[:10_000] = 3
+        dst = np.sort(dst)
+    d = torch.as_tensor(dst, device=dev)
+    bs = torch.as_tensor(np.searchsorted(dst, np.arange(0, n_pad + 1, 128)).astype(np.int32), device=dev)
+    src = torch.randint(0, n_x, (e,), dtype=torch.int32, device=dev)
+    x = torch.randn((n_x, f), device=dev).to(dtype)
+    w = torch.rand(e, device=dev) + 0.5 if weighted else None
+    before = K.pallas_gather_scatter_sum.launches
+    coo = K.pallas_gather_scatter_sum(x, src, d, n_pad, w)
+    blk = K.pallas_gather_scatter_sum(x, src, d, n_pad, w, bs)
+    assert K.pallas_gather_scatter_sum.launches == before + 2
+    assert coo.dtype == dtype and coo.shape == (n_pad, f)
+    _assert_k1_close(coo, K.pallas_gather_scatter_sum_plain(x, src, d, n_pad, w))
+    assert torch.equal(coo, blk)  # no pad edges here: every row agrees
+    assert float(coo[n_pad // 2 :].float().abs().max()) == 0.0
+
+
+def test_gather_scatter_sum_misaligned_empty_and_rejects(dev):
+    n_pad, f = 256, 8
+    d = torch.as_tensor(_sorted_dst(n_pad, 1000, 4), device=dev)
+    src = torch.randint(0, n_pad, (1000,), dtype=torch.int32, device=dev)
+    flat = torch.randn(n_pad * f + 1, device=dev)
+    x = flat[1:].view(n_pad, f)  # 4 bytes past a 16-byte boundary
+    got = K.pallas_gather_scatter_sum(x, src, d, n_pad)
+    _assert_k1_close(got, K.pallas_gather_scatter_sum_plain(x, src, d, n_pad))
+    assert torch.equal(got, K.pallas_gather_scatter_sum(x, src, d, n_pad))  # deterministic
+    none = torch.zeros(0, dtype=torch.int32, device=dev)
+    empty = K.pallas_gather_scatter_sum(x, none, none, n_pad)
+    assert empty.shape == (n_pad, f) and float(empty.abs().max()) == 0.0
+    with pytest.raises(ValueError, match="edge_src has"):
+        K.pallas_gather_scatter_sum(x, src[:10], d, n_pad)
+    with pytest.raises(ValueError, match="edge_weight has"):
+        K.pallas_gather_scatter_sum(x, src, d, n_pad, torch.ones(10, device=dev))
+    with pytest.raises(TypeError, match="int32"):
+        K.pallas_gather_scatter_sum(x, src.long(), d, n_pad)
+
+
+def test_gat_on_card_matches_cpu(dev):
+    """The GAT forward on the card (K1-K3) against the CPU (plain
+    versions), banded src gather on a clustered community window; logits
+    held at four bf16 ulps of the largest (2^-6·max|ref|), as GraphSAGE."""
+    from alaz_tpu_torch.config import ModelConfig
+    from alaz_tpu_torch.convert import graph_to_torch
+    from alaz_tpu_torch.models import gat
+    from alaz_tpu_torch.replay.synth import example_batch
+
+    cfg = ModelConfig(model="gat", src_gather="banded")
+    batch = example_batch(n_pods=900, n_svcs=100, n_edges=4000, seed=0, structure="community", layout="clustered")
+    model = gat.init(0, cfg, device="cpu")
+    with torch.inference_mode():
+        ref = gat.apply(model, graph_to_torch(batch.device_arrays(), "cpu"), cfg)
+        K.reset_launch_counts()
+        got = gat.apply(model.to(dev), graph_to_torch(batch.device_arrays(), dev), cfg)
+    assert K.launch_counts() == {
+        "scatter_sum_sorted": 2, "segment_expand_sorted": 3,
+        "gather_rows_banded": 3, "pallas_gather_scatter_sum": 0,
+    }
+    for key, n in (("edge_logits", batch.n_edges), ("node_logits", batch.n_nodes)):
+        r, g = ref[key][:n], got[key][:n].cpu()
+        assert float((g - r).abs().max()) <= 2.0**-6 * float(r.abs().max())
+    assert float(got["attn_clamp_saturation"]) == float(ref["attn_clamp_saturation"])

@@ -31,7 +31,7 @@ from alaz_tpu.config import ModelConfig as JaxConfig
 from alaz_tpu.models import graphsage as jsage
 from alaz_tpu_torch.config import ModelConfig
 from alaz_tpu_torch.convert import graph_to_torch, params_from_jax, params_to_numpy
-from alaz_tpu_torch.models import graphsage, registry
+from alaz_tpu_torch.models import gat, graphsage, registry
 from alaz_tpu_torch.replay.synth import example_batch
 
 SPEC = Path(__file__).resolve().parent.parent / "resources" / "specs" / "graphsage_256x1024.json"
@@ -143,9 +143,9 @@ def test_blocked_config_without_extents_raises(batch):
 
 
 def test_registry():
-    init, apply = registry.get_model("graphsage")
-    assert (init, apply) == (graphsage.init, graphsage.apply)
-    for name in ("gat", "tgn", "experts"):
+    assert registry.get_model("graphsage") == (graphsage.init, graphsage.apply)
+    assert registry.get_model("gat") == (gat.init, gat.apply)
+    for name in ("tgn", "experts"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             registry.get_model(name)
     with pytest.raises(ValueError, match="unknown model"):

@@ -11,7 +11,11 @@ Tolerances:
   but in another order (one-hot matmuls against index_add_), so a sum
   that lies near a rounding boundary may land one bf16 ulp apart:
   |Δ| ≤ 2^-7·|ref| (one ulp is at most 2^-7 of the value) + 1e-6.
-- the expand (a gather) is exact: bit for bit.
+- the expand and the banded src gather (row gathers) are exact: bit for
+  bit.
+- the fused gather-scatter (K4): both sides form each message in x's
+  dtype and sum in f32 in another order: f32 within 1e-5 of max|ref|,
+  bf16 within one bf16 ulp (2^-7·|ref|) plus that.
 """
 
 from __future__ import annotations
@@ -21,7 +25,9 @@ import numpy as np
 import pytest
 import torch
 
+from alaz_tpu.ops import pallas_segment as jpallas
 from alaz_tpu.ops import segment as jseg
+from alaz_tpu_torch import ops as tops
 from alaz_tpu_torch.ops import segment as tseg
 from alaz_tpu_torch.ops import segment_kernels as K
 from alaz_tpu_torch.graph.snapshot import edge_block_starts_from
@@ -186,15 +192,127 @@ def test_expand_dst_override(monkeypatch):
         tseg.expand_dst(v, _to_t(dst), N_PAD, True)
 
 
-def test_gather_src_modes():
+@pytest.mark.parametrize("mode", ["xla", "banded", "banded-interpret"])
+def test_gather_src_modes(mode):
+    """Every mode gives exactly v[ids] (on a CPU tensor the banded modes
+    take K3's plain version); an unknown mode raises."""
     v = torch.randn(16, 4)
     ids = torch.tensor([3, 1, 15], dtype=torch.int32)
-    assert torch.equal(tseg.gather_src(v, ids, 16, "xla"), v[ids.long()])
+    K.reset_launch_counts()
+    assert torch.equal(tseg.gather_src(v, ids, 16, mode), v[ids.long()])
+    assert K.gather_rows_banded.launches == 0
     with pytest.raises(ValueError, match="src_gather mode"):
         tseg.gather_src(v, ids, 16, "bandd")
-    for mode in ("banded", "banded-interpret"):
-        with pytest.raises(NotImplementedError, match="banded-gather kernel"):
-            tseg.gather_src(v, ids, 16, mode)
+
+
+def _src_ids(case: str, e: int, n: int, seed: int) -> np.ndarray:
+    """Unsorted src ids of the shapes the TPU kernel's branches take:
+    each 512-edge chunk's ids inside a 3-window band ("banded"), the same
+    with 10% strays anywhere in the table ("strays", inside the TPU
+    kernel's 1/8 budget), or uniform over the table ("uniform", past the
+    budget: the TPU kernel's plain-gather branch)."""
+    rng = np.random.default_rng(seed)
+    if case == "uniform":
+        return rng.integers(0, n, e).astype(np.int32)
+    chunk = np.arange(e) // 512
+    base = (chunk * 3 * 128) % (n - 3 * 128)
+    ids = base + rng.integers(0, 3 * 128, e)
+    if case == "strays":
+        stray = rng.random(e) < 0.1
+        ids = np.where(stray, rng.integers(0, n, e), ids)
+    return ids.astype(np.int32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case,e,f", [
+    ("banded", 2048, 128),
+    ("strays", 2048, 128),
+    ("uniform", 2048, 128),
+    ("strays", 1000, 128),  # E not a multiple of the TPU kernel's 512-edge chunk
+    ("banded", 1536, 48),  # F not 128
+])
+def test_gather_rows_banded_bit_exact(dtype, case, e, f):
+    """K3's wrapper on CPU tensors equals the JAX kernel (interpret mode)
+    bit for bit, in every branch of the TPU kernel."""
+    n = 1024
+    ids = _src_ids(case, e, n, seed=e + f)
+    jd, td = _DT[dtype]
+    v = np.random.default_rng(11).normal(size=(n, f)).astype(np.float32)
+    ref = jpallas.gather_rows_banded(_to_j(v, jd), _to_j(ids), n)
+    got = K.gather_rows_banded(_to_t(v, td), _to_t(ids), n)
+    assert got.dtype == td and got.shape == (e, f)
+    np.testing.assert_array_equal(_np(got), _np(ref))
+
+
+def _k4_inputs(seed: int, f: int = 32):
+    msgs, dst, bs = _inputs(seed, f)
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(N_PAD, f)).astype(np.float32)
+    src = rng.integers(0, N_PAD, E_PAD).astype(np.int32)
+    w = rng.uniform(0.1, 2.0, E_PAD).astype(np.float32)
+    return x, src, dst, w, bs
+
+
+def _assert_k4_close(got, ref, dtype):
+    got, ref = _np(got), _np(ref)
+    scale = 1e-5 * np.abs(ref).max()
+    if dtype == "float32":
+        assert np.abs(got - ref).max() <= scale
+    else:
+        assert (np.abs(got - ref) <= 2.0**-7 * np.abs(ref) + scale).all()
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_scatter_sum_kernel_path_matches(dtype, weighted):
+    """ops.gather_scatter_sum with kernels on (use_pallas=None) against the
+    JAX kernel pallas_gather_scatter_sum (interpret mode); the blocked
+    row starts give the COO rows bit for bit on every real row."""
+    x, src, dst, w, bs = _k4_inputs(12)
+    jd, td = _DT[dtype]
+    ref = jpallas.pallas_gather_scatter_sum(
+        _to_j(x, jd), _to_j(src), _to_j(dst), N_PAD, _to_j(w) if weighted else None
+    )
+    K.reset_launch_counts()
+    tw = _to_t(w) if weighted else None
+    got = tops.gather_scatter_sum(_to_t(x, td), _to_t(src), _to_t(dst), N_PAD, tw)
+    assert K.launch_counts()["pallas_gather_scatter_sum"] == 0  # CPU: the plain version
+    assert got.dtype == td and got.shape == (N_PAD, 32)
+    _assert_k4_close(got, ref, dtype)
+    blk = tops.gather_scatter_sum(
+        _to_t(x, td), _to_t(src), _to_t(dst), N_PAD, tw, block_starts=_to_t(bs)
+    )
+    assert torch.equal(blk[: N_PAD - 1], got[: N_PAD - 1])
+
+
+@pytest.mark.parametrize("layout", ["coo", "blocked"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_gather_scatter_sum_plain_path_matches(weighted, layout):
+    """Kernels off: the plain gather and segment sum against the JAX
+    package's XLA path, f32."""
+    x, src, dst, w, bs = _k4_inputs(13)
+    blocked = layout == "blocked"
+    ref = jseg.gather_scatter_sum(
+        _to_j(x), _to_j(src), _to_j(dst), N_PAD, _to_j(w) if weighted else None,
+        use_pallas=False, block_starts=_to_j(bs) if blocked else None,
+    )
+    got = tops.gather_scatter_sum(
+        _to_t(x), _to_t(src), _to_t(dst), N_PAD, _to_t(w) if weighted else None,
+        use_pallas=False, block_starts=_to_t(bs) if blocked else None,
+    )
+    _assert_sum_close(got, ref, "float32")
+
+
+def test_gather_scatter_sum_rounds_each_product_to_x_dtype():
+    """In bf16 each w·x is rounded to bf16 before the f32 sum, as the JAX
+    package does: 3 edges of x=1+2^-7 and w=1+2^-7 into one row sum to
+    3·bf16((1+2^-7)^2) = 3·(1+2^-6), not 3·(1+2^-7)^2."""
+    x = torch.full((128, 1), 1 + 2**-7).bfloat16()
+    src = torch.zeros(3, dtype=torch.int32)
+    dst = torch.zeros(3, dtype=torch.int32)
+    w = torch.full((3,), 1 + 2**-7)
+    out = K.pallas_gather_scatter_sum(x, src, dst, 128, w)
+    assert float(out[0, 0]) == float(torch.tensor(3 * (1 + 2**-6)).bfloat16())
 
 
 def test_kernels_enabled_predicate():
@@ -209,15 +327,25 @@ def test_wrappers_take_plain_version_only_for_cpu_tensors():
     on any other device with no kernel raises instead of falling back."""
     msgs, dst, _ = _inputs(8)
     K.reset_launch_counts()
-    K.scatter_sum_sorted(_to_t(msgs), _to_t(dst), N_PAD)
-    K.segment_expand_sorted(_to_t(msgs), _to_t(dst), E_PAD)
-    assert K.launch_counts() == {"scatter_sum_sorted": 0, "segment_expand_sorted": 0}
+    t_msgs, t_dst = _to_t(msgs), _to_t(dst)
+    K.scatter_sum_sorted(t_msgs, t_dst, N_PAD)
+    K.segment_expand_sorted(t_msgs, t_dst, E_PAD)
+    K.gather_rows_banded(t_msgs, t_dst, E_PAD)
+    K.pallas_gather_scatter_sum(t_msgs, t_dst, t_dst, N_PAD)
+    assert K.launch_counts() == {
+        "scatter_sum_sorted": 0, "segment_expand_sorted": 0,
+        "gather_rows_banded": 0, "pallas_gather_scatter_sum": 0,
+    }
     meta_msgs = torch.empty((E_PAD, 32), device="meta")
     meta_dst = torch.empty(E_PAD, dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        K.scatter_sum_sorted(meta_msgs, meta_dst, N_PAD)
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        K.segment_expand_sorted(meta_msgs, meta_dst, E_PAD)
+    for call in (
+        lambda: K.scatter_sum_sorted(meta_msgs, meta_dst, N_PAD),
+        lambda: K.segment_expand_sorted(meta_msgs, meta_dst, E_PAD),
+        lambda: K.gather_rows_banded(meta_msgs, meta_dst, E_PAD),
+        lambda: K.pallas_gather_scatter_sum(meta_msgs, meta_dst, meta_dst, N_PAD),
+    ):
+        with pytest.raises(ValueError, match="no kernel for device meta"):
+            call()
 
 
 def test_scatter_dtype_contract():
@@ -234,7 +362,14 @@ def test_scatter_dtype_contract():
 def test_kernels_are_forward_only():
     msgs, dst, _ = _inputs(10)
     m = _to_t(msgs).requires_grad_()
-    with pytest.raises(NotImplementedError, match="forward only"):
-        K.scatter_sum_sorted(m, _to_t(dst), N_PAD)
-    with torch.no_grad():
-        K.scatter_sum_sorted(m, _to_t(dst), N_PAD)
+    d = _to_t(dst)
+    for call in (
+        lambda: K.scatter_sum_sorted(m, d, N_PAD),
+        lambda: K.gather_rows_banded(m, d, E_PAD),
+        lambda: K.pallas_gather_scatter_sum(m, d, d, N_PAD),
+        lambda: K.pallas_gather_scatter_sum(m.detach(), d, d, N_PAD, torch.ones(E_PAD, requires_grad=True)),
+    ):
+        with pytest.raises(NotImplementedError, match="forward only"):
+            call()
+        with torch.no_grad():
+            call()

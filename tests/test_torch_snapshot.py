@@ -94,16 +94,19 @@ def test_from_presorted_matches():
     assert (a.edge_dst[e:] == n_pad - 1).all()
 
 
+@pytest.mark.parametrize("layout", ["random", "clustered"])
 @pytest.mark.parametrize("structure", ["uniform", "community"])
 @pytest.mark.parametrize("seed", [0, 3])
-def test_example_batch_matches(structure, seed):
-    kw = dict(n_pods=180, n_svcs=20, n_edges=1000, seed=seed, structure=structure)
+def test_example_batch_matches(structure, seed, layout):
+    kw = dict(n_pods=180, n_svcs=20, n_edges=1000, seed=seed, structure=structure, layout=layout)
     a = example_batch(**kw)
     b = jax_entry._example_batch(**kw)
     assert a.bucket_key == "n256xe1024"
     _assert_batches_equal(a, b)
 
 
-def test_example_batch_clustered_layout_not_ported():
-    with pytest.raises(NotImplementedError, match="banded-gather"):
-        example_batch(n_pods=10, n_svcs=2, n_edges=20, layout="clustered")
+def test_example_batch_rejects_unknown_layout_and_structure():
+    with pytest.raises(ValueError, match="layout"):
+        example_batch(n_pods=10, n_svcs=2, n_edges=20, layout="clustred")
+    with pytest.raises(ValueError, match="structure"):
+        example_batch(n_pods=10, n_svcs=2, n_edges=20, structure="communty")
