@@ -53,20 +53,67 @@
 //     Replaces alaz_tpu/ops/pallas_segment.py pallas_gather_scatter_sum
 //     (_forward, through _scatter_sorted): out[d] = sum_{e: dst[e]=d}
 //     w[e] * x[src[e]] over dst-sorted edges.
-//     Bound on the H100: bytes (src and dst ids, the weights, the x rows
-//     the edges touch and the output; one multiply and one add per element
-//     read). The TPU version gathered the messages into HBM with XLA and
-//     then ran K1's one-hot matmuls over them. Design: K1's warp per dst
-//     row, with the message row read as x[src[e]] and never stored, so the
-//     [E, F] messages never reach device memory. The product is rounded to
-//     x's dtype before it is added in f32 (the JAX package multiplies in
-//     x's dtype, then sums in f32 and rounds once), and __fmul_rn keeps
-//     nvcc from contracting it into an FMA. Deterministic, and COO and
-//     blocked row starts give bit-identical rows, as K1. An out-of-range
-//     src contributes zero.
+//     The TPU version gathered the messages into HBM with XLA and then ran
+//     K1's one-hot matmuls over them; here the message row x[src[e]] is
+//     read and never stored, so the [E, F] messages never reach device
+//     memory. The product is rounded to x's dtype before it is added in
+//     f32 (the JAX package multiplies in x's dtype, then sums in f32 and
+//     rounds once), and __fmul_rn keeps nvcc from contracting it into an
+//     FMA. An out-of-range src contributes zero; a row without edges is
+//     zero.
+//     Bound on the H100: bytes. HBM moves the src and dst ids, the
+//     weights, each distinct x row once and the output (the bound). But
+//     every edge reads its x row again, from L2 when the table fits there
+//     (N = 131,072 bf16 rows of 256 B is 33.5 MB of the 50 MB L2): at the
+//     smoke window's 1M edges that is 268 MB of L2 reads, ~4x the HBM
+//     bytes the bound counts.
+//     Design, and what each part is for:
+//     - Edge-balanced tiles. A CTA takes kGsTile consecutive live edges
+//       (the frontier is row_start[n_rows/128]; tiles past it exit), so a
+//       window whose edges sit in a few dst blocks still spreads over all
+//       SMs: 1,024 tiles of 1,024 edges, two waves of four CTAs an SM,
+//       for the smoke windows. The tile's dst, src and weights go to
+//       shared memory, every global load issued before the first store;
+//       its runs of equal dst come from one block scan of dst[e] !=
+//       dst[e-1]. No search, and no dependent id load before a row load:
+//       each edge's row address (a generic pointer) is built once a tile.
+//     - Rows in flight. A group of lanes owns a contiguous slice of the
+//       tile and walks it run by run; each lane reads 16 bytes of a row (a
+//       half-warp per 256-byte bf16 row, two rows per instruction),
+//       kGsUnroll rows ahead of its sums: 16 rows per warp, 512 an SM.
+//       Register unrolling, not a cp.async ring: the addresses are ready
+//       in shared memory, and a ring would cost the shared memory that
+//       holds four CTAs an SM. A run's last edges add a zero row for the
+//       slots past it, so the loop body has no branch; an out-of-range src
+//       reads the zero row too. bf16 products go two at a time (__hmul2);
+//       the scalar f32 -> bf16 conversion pipe set the pace before.
+//     - Determinism without atomics. A slice sums in f32 in edge order; a
+//       row cut by slice ends is combined through shared memory in slice
+//       order, a row cut by tile ends through per-tile f32 carries that a
+//       second kernel adds in tile order and rounds once. The partition
+//       depends only on edge positions, so COO and blocked row starts give
+//       bit-identical rows. Every output row is written once: rows of
+//       busy blocks by the tiles (gaps between dst values as zeros), the
+//       empty 128-row blocks by the tile CTAs after their walks.
+//     - Row starts. The COO layout's starts come from a one-pass kernel
+//       (no search), launched ahead of the tiles, which overlap it
+//       (Programmatic Dependent Launch) while they load their ids.
+//     - Staging (stage_rows > 0; off by default). The tile sorts its (src,
+//       position) pairs (a block radix sort), and each src row used twice
+//       or more in the tile is copied once into shared memory, up to
+//       stage_rows rows; the walk reads those rows there and the rest from
+//       L2. Only where a row is read changes, never the order of the sums,
+//       so staged and streamed results are equal bit for bit. On the H100
+//       it halves the walk on the clustered window but loses overall: the
+//       sort lengthens each tile and the staged rows' shared memory halves
+//       the CTAs an SM (chip_smoke.py prints both).
+//     What sets the pace on the H100 (PERF.md): the walks' L2 reads, at
+//     ~8 TB/s while the tiles walk, the tiles' load and combine phases
+//     that the two waves run side by side, and the two small kernels.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -244,6 +291,49 @@ cudaError_t row_gather(RowGather which, const void* v, const void* ids, void* ou
   }
 }
 
+constexpr int kGsThreads = 256;                 // threads per K4 tile CTA
+constexpr int kGsTile = 1024;                   // live edges per tile
+constexpr int kGsItems = kGsTile / kGsThreads;  // ids per thread
+constexpr int kGsUnroll = 8;                    // x rows in flight per lane
+constexpr int kGsMinBlocks = 4;                 // tile CTAs an SM holds (64 registers a thread)
+constexpr int kGsCarryThreads = 128;            // threads per carry CTA
+constexpr int kStartsEdges = 16;                // edges per thread of the row-starts kernel
+constexpr int kRadixBits = 4;                   // digit of the tile's src sort
+constexpr int kRadixBins = 1 << kRadixBits;
+constexpr int kNoRow = INT_MIN;                 // dst halo past either end of the live edges
+// dynamic shared memory a staging tile may take: two CTAs an SM
+constexpr int kGsStageBudget = 112 * 1024;
+constexpr int kGsStageMin = 16;       // fewer staging rows than this: stream only
+constexpr int kMaxSmem = 232448;      // per CTA on the H100 (227 KB)
+// the sort's keys, positions and (digit, thread) counts
+constexpr int kGsSortBytes = 4 * kGsTile + 2 * kGsTile + 2 * kRadixBins * kGsThreads;
+
+__host__ __device__ constexpr int align16(int b) { return (b + 15) & ~15; }
+
+// Byte offsets of a K4 tile's dynamic shared memory: dst with a one-id
+// halo on each side; each edge's row address (a generic pointer: an x
+// row, a staged row, or the zero row); weights; the starts of the tile's
+// runs of equal dst; each edge's staging slot; one scratch region (the src
+// ids and, while staging, the sort's keys, positions and digit counts;
+// the slices' f32 partial sums during the walk); a row of zeros; the
+// staged rows.
+struct GsLayout {
+  int addr, w, runs, slot, scratch, zero, rows, total;
+  __host__ __device__ GsLayout(int vec, int stage_rows, int row_bytes) {
+    const bool stage = stage_rows > 0;
+    addr = align16(4 * (kGsTile + 2));
+    w = addr + 8 * kGsTile;
+    runs = w + 4 * kGsTile;
+    slot = align16(runs + 2 * (kGsTile + 1));
+    scratch = slot + (stage ? 2 * kGsTile : 0);
+    const int part = 2 * vec * kGsThreads * 4;
+    const int ids = 4 * kGsTile + (stage ? kGsSortBytes : 0);
+    zero = align16(scratch + (ids > part ? ids : part));
+    rows = align16(zero + row_bytes);
+    total = rows + (stage ? stage_rows * row_bytes : 0);
+  }
+};
+
 // a product in T's precision: the f32 product, rounded to T
 template <typename T>
 __device__ __forceinline__ float mul_in(float a, float b);
@@ -254,78 +344,733 @@ __device__ __forceinline__ float mul_in<__nv_bfloat16>(float a, float b) {
   return __bfloat162float(__float2bfloat16_rn(__fmul_rn(a, b)));
 }
 
+// a tile's ids and weights as shared memory holds them: a bf16 weight
+// twice, as the second factor of a bf16x2 product
+__device__ __forceinline__ int to_smem(int v) { return v; }
+__device__ __forceinline__ float to_smem(float v) { return v; }
+__device__ __forceinline__ __nv_bfloat162 to_smem(__nv_bfloat16 v) {
+  return __bfloat162bfloat162(v);
+}
+
+// acc[j] += m[j] * w, each product rounded to T before the f32 sum. For
+// bf16 two products at a time (__hmul2: the exact product of two bf16
+// values, rounded once to bf16, as the f32 product rounded to bf16).
+template <int VEC>
+__device__ __forceinline__ void add_products(float (&acc)[VEC], const Vec<float, VEC>& m, float w) {
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) acc[j] += mul_in<float>(m.v[j], w);
+}
+template <int VEC>
+__device__ __forceinline__ void add_products(float (&acc)[VEC], const Vec<__nv_bfloat16, VEC>& m,
+                                             __nv_bfloat162 w) {
+  if constexpr (VEC % 2 == 0) {
+#pragma unroll
+    for (int j = 0; j < VEC; j += 2) {
+      const __nv_bfloat162 q = __hmul2(__halves2bfloat162(m.v[j], m.v[j + 1]), w);
+      const unsigned bits = *reinterpret_cast<const unsigned*>(&q);
+      acc[j] += __uint_as_float(bits << 16);  // the low bf16 as f32
+      acc[j + 1] += __uint_as_float(bits & 0xffff0000u);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j)
+      acc[j] += mul_in<__nv_bfloat16>(__bfloat162float(m.v[j]), __low2float(w));
+  }
+}
+
 template <typename T, int VEC>
-__device__ __forceinline__ Vec<T, VEC> load_row(const T* __restrict__ x, int r, int n_rows_x,
-                                                int f, int c) {
-  if (r >= 0 && r < n_rows_x) return *reinterpret_cast<const Vec<T, VEC>*>(x + (size_t)r * f + c);
+__device__ __forceinline__ Vec<T, VEC> zero_vec() {
   Vec<T, VEC> z;
 #pragma unroll
   for (int k = 0; k < VEC; ++k) z.v[k] = from_f32<T>(0.0f);
   return z;
 }
 
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kWarps * 32)
-gather_scatter_sum_kernel(const T* __restrict__ x, const int* __restrict__ src,
-                          const int* __restrict__ dst, const T* __restrict__ w,
-                          const int* __restrict__ row_start, T* __restrict__ out, int n_rows,
-                          int n_rows_x, int f, int n_edges) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= n_rows) return;
-  int s, t;
-  row_run(dst, row_start, row, n_edges, s, t);
-  T* orow = out + (size_t)row * f;
-  for (int c = lane * VEC; c < f; c += 32 * VEC) {
-    float acc[VEC];
+// The tile's dst, src and weights into shared memory (weights as to_smem
+// gives them; one for no weights): every global load of a thread is
+// issued before its first shared store, with 16-byte loads for a full,
+// aligned tile.
+template <typename T, typename W>
+__device__ __forceinline__ void load_tile_ids(int* s_dst, int* s_src, W* s_w,
+                                              const int* __restrict__ dst,
+                                              const int* __restrict__ src,
+                                              const T* __restrict__ w, int n, W one) {
+  constexpr int KW = 16 / sizeof(T);
+  constexpr int DI = (kGsTile / 4 + kGsThreads - 1) / kGsThreads;
+  constexpr int DW = (kGsTile / KW + kGsThreads - 1) / kGsThreads;
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src) |
+                         reinterpret_cast<uintptr_t>(w);
+  if (n == kGsTile && (bits & 15) == 0) {
+    Vec<int, 4> dv[DI], sv[DI];
+    Vec<T, KW> wv[DW];
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) acc[k] = 0.0f;
-    int e = s;
-    for (; e + kUnroll <= t; e += kUnroll) {
-      Vec<T, VEC> m[kUnroll];
-      float wt[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        m[u] = load_row<T, VEC>(x, __ldg(src + e + u), n_rows_x, f, c);
-        wt[u] = w ? to_f32(w[e + u]) : 1.0f;
+    for (int j = 0; j < DI; ++j) {
+      const int q = threadIdx.x + j * kGsThreads;
+      if (q < kGsTile / 4) {
+        dv[j] = *reinterpret_cast<const Vec<int, 4>*>(dst + 4 * q);
+        sv[j] = *reinterpret_cast<const Vec<int, 4>*>(src + 4 * q);
       }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-#pragma unroll
-        for (int k = 0; k < VEC; ++k) acc[k] += mul_in<T>(to_f32(m[u].v[k]), wt[u]);
     }
-    for (; e < t; ++e) {
-      const Vec<T, VEC> m = load_row<T, VEC>(x, __ldg(src + e), n_rows_x, f, c);
-      const float wt = w ? to_f32(w[e]) : 1.0f;
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) acc[k] += mul_in<T>(to_f32(m.v[k]), wt);
+    for (int j = 0; j < DW; ++j) {
+      const int q = threadIdx.x + j * kGsThreads;
+      if (w && q < kGsTile / KW) wv[j] = *reinterpret_cast<const Vec<T, KW>*>(w + KW * q);
     }
-    Vec<T, VEC> o;
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) o.v[k] = from_f32<T>(acc[k]);
-    *reinterpret_cast<Vec<T, VEC>*>(orow + c) = o;
+    for (int j = 0; j < DI; ++j) {
+      const int q = threadIdx.x + j * kGsThreads;
+      if (q < kGsTile / 4) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          s_dst[4 * q + k] = dv[j].v[k];
+          s_src[4 * q + k] = sv[j].v[k];
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < DW; ++j) {
+      const int q = threadIdx.x + j * kGsThreads;
+      if (q < kGsTile / KW) {
+#pragma unroll
+        for (int k = 0; k < KW; ++k) s_w[KW * q + k] = w ? to_smem(wv[j].v[k]) : one;
+      }
+    }
+  } else {
+    int dv[kGsItems], sv[kGsItems];
+    W wv[kGsItems];
+#pragma unroll
+    for (int j = 0; j < kGsItems; ++j) {
+      const int i = threadIdx.x + j * kGsThreads;
+      if (i < n) {
+        dv[j] = __ldg(dst + i);
+        sv[j] = __ldg(src + i);
+        wv[j] = w ? to_smem(w[i]) : one;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kGsItems; ++j) {
+      const int i = threadIdx.x + j * kGsThreads;
+      if (i < n) {
+        s_dst[i] = dv[j];
+        s_src[i] = sv[j];
+        s_w[i] = wv[j];
+      }
+    }
   }
+}
+
+// exclusive prefix sum of v over the CTA's threads in order; total gets
+// the sum. Every thread of the CTA must call it.
+__device__ __forceinline__ int block_exclusive_scan(int v, int* s_warp, int& total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) s_warp[warp] = x;
+  __syncthreads();
+  int before = 0;
+  total = 0;
+#pragma unroll
+  for (int i = 0; i < kGsThreads / 32; ++i) {
+    const int t = s_warp[i];
+    before += i < warp ? t : 0;
+    total += t;
+  }
+  __syncthreads();  // s_warp is reused by the next scan
+  return before + x - v;
+}
+
+// Staging: sort the tile's (src, position) pairs by src (LSD radix sort,
+// kRadixBits a pass, each thread holding kGsItems consecutive pairs, so
+// the sort is stable), give every src used twice or more a slot in
+// sorted order, up to capacity, record each edge's slot (-1: read from
+// L2) and copy each slotted row once into s_rows. Returns the rows
+// staged. Every thread of the CTA must call it.
+template <typename T, int VEC>
+__device__ int stage_tile_rows(const T* __restrict__ x, const int* s_src, short* s_slot,
+                               unsigned char* scratch, T* s_rows, int* s_warp, int n,
+                               int n_rows_x, int f, int capacity) {
+  int* s_key = reinterpret_cast<int*>(scratch);
+  short* s_pos = reinterpret_cast<short*>(scratch + 4 * kGsTile);
+  unsigned short* s_cnt = reinterpret_cast<unsigned short*>(scratch + 6 * kGsTile);
+  int* s_stage_src = reinterpret_cast<int*>(s_cnt);  // after the sort
+  const int t = threadIdx.x;
+  int key[kGsItems], pos[kGsItems];
+#pragma unroll
+  for (int k = 0; k < kGsItems; ++k) {
+    const int i = t * kGsItems + k;
+    const int s = i < n ? s_src[i] : -1;
+    key[k] = (s >= 0 && s < n_rows_x) ? s : n_rows_x;  // out of range and pads sort last
+    pos[k] = i;
+  }
+  const int bits = 32 - __clz(n_rows_x);
+  for (int shift = 0; shift < bits; shift += kRadixBits) {
+    int dig[kGsItems];
+#pragma unroll
+    for (int d = 0; d < kRadixBins; ++d) s_cnt[d * kGsThreads + t] = 0;
+#pragma unroll
+    for (int k = 0; k < kGsItems; ++k) {
+      dig[k] = (key[k] >> shift) & (kRadixBins - 1);
+      ++s_cnt[dig[k] * kGsThreads + t];
+    }
+    __syncthreads();
+    // counts in (digit, thread) order; thread t scans kRadixBins of them
+    unsigned short* mine = s_cnt + t * kRadixBins;
+    int run[kRadixBins];
+    int sum = 0;
+#pragma unroll
+    for (int j = 0; j < kRadixBins; ++j) {
+      run[j] = sum;
+      sum += mine[j];
+    }
+    int total;
+    const int base = block_exclusive_scan(sum, s_warp, total);
+#pragma unroll
+    for (int j = 0; j < kRadixBins; ++j) mine[j] = (unsigned short)(base + run[j]);
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kGsItems; ++k) {
+      const int p = s_cnt[dig[k] * kGsThreads + t]++;
+      s_key[p] = key[k];
+      s_pos[p] = (short)pos[k];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kGsItems; ++k) {
+      key[k] = s_key[t * kGsItems + k];
+      pos[k] = s_pos[t * kGsItems + k];
+    }
+  }
+  // a slot for the head of each run of two or more equal src ids
+  unsigned multi = 0;
+  int heads = 0;
+#pragma unroll
+  for (int k = 0; k < kGsItems; ++k) {
+    const int i = t * kGsItems + k;
+    const int prev = i > 0 ? s_key[i - 1] : -1;
+    const int next = i + 1 < kGsTile ? s_key[i + 1] : -1;
+    const bool valid = key[k] < n_rows_x;
+    if (valid && (key[k] == prev || key[k] == next)) multi |= 1u << k;
+    heads += (valid && key[k] != prev && key[k] == next) ? 1 : 0;
+  }
+  int n_slots;
+  int seen = block_exclusive_scan(heads, s_warp, n_slots);
+#pragma unroll
+  for (int k = 0; k < kGsItems; ++k) {
+    const int i = t * kGsItems + k;
+    const bool head = (multi >> k & 1u) && (i == 0 || s_key[i - 1] != key[k]);
+    seen += head ? 1 : 0;
+    const int slot = seen - 1;
+    const bool staged = (multi >> k & 1u) && slot < capacity;
+    if (pos[k] < n) s_slot[pos[k]] = staged ? (short)slot : (short)-1;
+    if (head && staged) s_stage_src[slot] = key[k];
+  }
+  const int n_staged = n_slots < capacity ? n_slots : capacity;
+  __syncthreads();
+  const int words = f / VEC;
+  const int n_words = n_staged * words;
+  for (int q0 = t; q0 < n_words; q0 += kGsThreads * kGsUnroll) {
+    Vec<T, VEC> v[kGsUnroll];
+#pragma unroll
+    for (int u = 0; u < kGsUnroll; ++u) {
+      const int q = q0 + u * kGsThreads;
+      if (q < n_words) {
+        const int slot = q / words;
+        v[u] = *reinterpret_cast<const Vec<T, VEC>*>(x + (size_t)s_stage_src[slot] * f +
+                                                      (q - slot * words) * VEC);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kGsUnroll; ++u) {
+      const int q = q0 + u * kGsThreads;
+      if (q < n_words) {
+        const int slot = q / words;
+        *reinterpret_cast<Vec<T, VEC>*>(s_rows + slot * f + (q - slot * words) * VEC) = v[u];
+      }
+    }
+  }
+  __syncthreads();
+  return n_staged;
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void store_row(T* __restrict__ out, int row, int n_rows, int f, int c,
+                                          const float (&acc)[VEC]) {
+  if (row < 0 || row >= n_rows) return;
+  Vec<T, VEC> o;
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) o.v[k] = from_f32<T>(acc[k]);
+  *reinterpret_cast<Vec<T, VEC>*>(out + (size_t)row * f + c) = o;
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void zero_rows(T* __restrict__ out, int lo, int hi, int n_rows, int f,
+                                          int c) {
+  const Vec<T, VEC> z = zero_vec<T, VEC>();
+  for (int r = lo < 0 ? 0 : lo; r < hi && r < n_rows; ++r)
+    *reinterpret_cast<Vec<T, VEC>*>(out + (size_t)r * f + c) = z;
+}
+
+// Zero the rows without live edges between consecutive dst values a < b
+// that share a 128-row block with a or with b (has_a false: b is the
+// first live edge's dst). Blocks without edges are zeroed whole by
+// zero_empty_block, so every row is written once.
+template <typename T, int VEC>
+__device__ __forceinline__ void zero_gap(T* __restrict__ out, int a, bool has_a, int b,
+                                         int n_rows, int f, int c) {
+  int lo = b >= 0 ? (b & ~(kBlockRows - 1)) : b;
+  if (has_a) {
+    int hi = a + 1;
+    if (a >= 0 && a < n_rows) {
+      hi = min((a | (kBlockRows - 1)) + 1, b);
+      zero_rows<T, VEC>(out, a + 1, hi, n_rows, f, c);
+    }
+    lo = max(lo, hi);
+  }
+  zero_rows<T, VEC>(out, lo, b, n_rows, f, c);
+}
+
+// Zero the 128-row dst blocks without live edges among b = blockIdx.x,
+// blockIdx.x + gridDim.x, ...: a share of the empty blocks for every CTA.
+template <typename T, int VEC>
+__device__ void zero_empty_blocks(const int* __restrict__ row_start, T* __restrict__ out,
+                                  int n_blocks, int f, int n_edges) {
+  const Vec<T, VEC> z = zero_vec<T, VEC>();
+  const int words = kBlockRows * f / VEC;
+  for (int b = blockIdx.x; b < n_blocks; b += gridDim.x) {
+    const int lo = min(max(__ldg(row_start + b), 0), n_edges);
+    const int hi = min(max(__ldg(row_start + b + 1), lo), n_edges);
+    if (hi > lo) continue;
+    Vec<T, VEC>* o = reinterpret_cast<Vec<T, VEC>*>(out + (size_t)b * kBlockRows * f);
+    for (int i = threadIdx.x; i < words; i += blockDim.x) o[i] = z;
+  }
+}
+
+__device__ __forceinline__ int live_frontier(const int* __restrict__ row_start, int n_rows,
+                                             int n_edges) {
+  return min(max(__ldg(row_start + n_rows / kBlockRows), 0), n_edges);
+}
+
+// Programmatic Dependent Launch (Hopper): the next kernel on the stream
+// may start once every CTA of this one has called launch_dependents (or
+// ended); wait_prerequisites waits for the kernel before to end and its
+// writes to be visible. Both do nothing for a kernel launched plainly.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+__device__ __forceinline__ void wait_prerequisites() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// K4's phase timeline, compiled in only with -DALAZ_K4_TIMELINE (the
+// timeline build of ops/_build.py; chip_smoke.py reads it): per tile CTA
+// the %globaltimer ns at its start, after its ids and runs are in shared
+// memory, after its first column pass's walk, at its end, and its SM.
+#ifdef ALAZ_K4_TIMELINE
+constexpr int kTimelineCtas = 4096;
+__device__ unsigned long long g_k4_timeline[kTimelineCtas * 5];
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define K4_STAMP(slot, value)                                                     \
+  if (threadIdx.x == 0 && blockIdx.x < kTimelineCtas)                              \
+    g_k4_timeline[blockIdx.x * 5 + (slot)] = (value)
+#else
+#define K4_STAMP(slot, value)
+#endif
+
+// One CTA per tile of kGsTile live edges (at least one per 8 dst blocks);
+// each also zeroes its share of the empty 128-row dst blocks. The tile finds its runs of
+// equal dst once (a block scan of dst[i] != dst[i-1]). In each column
+// pass (VEC columns a lane, LG lanes a group) every group walks its slice
+// of the tile run by run, kGsUnroll rows at a time, and writes the rows
+// that start and end inside the slice; rows cut by a slice end go to
+// shared memory, where the group holding a row's first edge in the tile
+// adds them up in slice order. A row cut by the tile's end leaves its
+// partial in carry[tile][1] (it continues past the tile), one cut only
+// by the tile's start in carry[tile][0]; the carry kernel finishes those.
+template <typename T, int VEC, bool STAGE>
+__global__ void __launch_bounds__(kGsThreads, kGsMinBlocks)
+gather_scatter_tile_kernel(const T* __restrict__ x, const int* __restrict__ src,
+                           const int* __restrict__ dst, const T* __restrict__ w,
+                           const int* __restrict__ row_start, T* __restrict__ out,
+                           float* __restrict__ carry, int n_rows, int n_rows_x, int f,
+                           int n_edges, int lanes_log2, int stage_rows) {
+  using W = decltype(to_smem(T{}));
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_warp[kGsThreads / 32];
+#ifdef ALAZ_K4_TIMELINE
+  const unsigned long long start_ns = global_ns();
+#endif
+  const int tile = blockIdx.x;
+  const int t0 = tile * kGsTile;
+
+  const GsLayout lay(VEC, STAGE ? stage_rows : 0, f * (int)sizeof(T));
+  int* s_dst = reinterpret_cast<int*>(smem) + 1;  // s_dst[-1 .. n]
+  const T** s_addr = reinterpret_cast<const T**>(smem + lay.addr);
+  W* s_w = reinterpret_cast<W*>(smem + lay.w);
+  short* s_run = reinterpret_cast<short*>(smem + lay.runs);  // run starts, then n
+  short* s_slot = reinterpret_cast<short*>(smem + lay.slot);
+  int* s_src = reinterpret_cast<int*>(smem + lay.scratch);
+  float* s_part = reinterpret_cast<float*>(smem + lay.scratch);
+  T* s_zero = reinterpret_cast<T*>(smem + lay.zero);
+  T* s_rows = reinterpret_cast<T*>(smem + lay.rows);
+  const W one = to_smem(from_f32<T>(1.0f));
+
+  // the ids do not depend on the row starts: load them while the kernel
+  // that computes those (COO) may still run
+  if (t0 < n_edges)
+    load_tile_ids(s_dst, s_src, s_w, dst + t0, src + t0, w ? w + t0 : nullptr,
+                  min(kGsTile, n_edges - t0), one);
+  wait_prerequisites();
+  const int frontier = live_frontier(row_start, n_rows, n_edges);
+  if (t0 >= frontier) {
+    zero_empty_blocks<T, VEC>(row_start, out, n_rows / kBlockRows, f, n_edges);
+    return;
+  }
+  const int n = min(kGsTile, frontier - t0);
+  for (int j = threadIdx.x; j < f; j += kGsThreads) s_zero[j] = from_f32<T>(0.0f);
+  if (threadIdx.x == 0) {
+    s_dst[-1] = t0 > 0 ? __ldg(dst + t0 - 1) : kNoRow;
+    s_dst[n] = t0 + n < frontier ? __ldg(dst + t0 + n) : kNoRow;
+  }
+  __syncthreads();
+  int n_runs;
+  {
+    int starts = 0;
+#pragma unroll
+    for (int j = 0; j < kGsItems; ++j) {
+      const int i = threadIdx.x * kGsItems + j;
+      starts += (i < n && (i == 0 || s_dst[i] != s_dst[i - 1])) ? 1 : 0;
+    }
+    int at = block_exclusive_scan(starts, s_warp, n_runs);
+#pragma unroll
+    for (int j = 0; j < kGsItems; ++j) {
+      const int i = threadIdx.x * kGsItems + j;
+      if (i < n && (i == 0 || s_dst[i] != s_dst[i - 1])) s_run[at++] = (short)i;
+    }
+    if (threadIdx.x == 0) s_run[n_runs] = (short)n;
+  }
+  if (STAGE)
+    stage_tile_rows<T, VEC>(x, s_src, s_slot, smem + lay.scratch + 4 * kGsTile, s_rows, s_warp, n,
+                            n_rows_x, f, stage_rows);
+  // each edge's row: staged, else x's, else (src out of range) the zero
+  // row at weight one, which adds +0.0 and so leaves every sum as it is
+  for (int i = threadIdx.x; i < n; i += kGsThreads) {
+    const int s = s_src[i];
+    const int sl = STAGE ? s_slot[i] : -1;
+    const bool valid = s >= 0 && s < n_rows_x;
+    s_addr[i] = sl >= 0 ? s_rows + sl * f : valid ? x + (size_t)s * f : s_zero;
+    if (!valid) s_w[i] = one;
+  }
+  __syncthreads();
+
+  K4_STAMP(0, start_ns);
+  K4_STAMP(1, global_ns());  // ids, runs and row addresses in shared memory
+  const int lanes = 1 << lanes_log2;
+  const int g = threadIdx.x >> lanes_log2;
+  const int lane = threadIdx.x & (lanes - 1);
+  const int slice = kGsItems << lanes_log2;  // edges per group
+  const int s0 = g * slice;
+  const int s1 = min(s0 + slice, n);
+  float* my_carry = carry + (size_t)tile * 2 * f;
+
+  for (int c0 = 0; c0 < f; c0 += lanes * VEC) {
+    const int c = c0 + lane * VEC;
+    const bool col = c < f;
+    if (s0 < s1 && col) {
+      int r = 0;  // the run holding s0: the last run start at or before it
+      for (int hi = n_runs; hi - r > 1;) {
+        const int mid = (r + hi) >> 1;
+        if (s_run[mid] <= s0) r = mid; else hi = mid;
+      }
+      for (int a = s0; a < s1; ++r) {
+        const int b = min((int)s_run[r + 1], s1);
+        const int row = s_dst[a];
+        float acc[VEC];
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) acc[j] = 0.0f;
+        int e = a;
+        for (; e + kGsUnroll <= b; e += kGsUnroll) {
+          Vec<T, VEC> m[kGsUnroll];
+#pragma unroll
+          for (int u = 0; u < kGsUnroll; ++u)
+            m[u] = *reinterpret_cast<const Vec<T, VEC>*>(s_addr[e + u] + c);
+#pragma unroll
+          for (int u = 0; u < kGsUnroll; ++u) add_products(acc, m[u], s_w[e + u]);
+        }
+        if (e < b) {  // the run's last edges; the slots past it add the zero row
+          Vec<T, VEC> m[kGsUnroll];
+          W wt[kGsUnroll];
+#pragma unroll
+          for (int u = 0; u < kGsUnroll; ++u) {
+            const bool in = e + u < b;
+            m[u] = *reinterpret_cast<const Vec<T, VEC>*>((in ? s_addr[e + u] : s_zero) + c);
+            wt[u] = in ? s_w[e + u] : one;
+          }
+#pragma unroll
+          for (int u = 0; u < kGsUnroll; ++u) add_products(acc, m[u], wt[u]);
+        }
+        const bool cut_front = a == s0 && s_dst[s0 - 1] == row;  // begun before the slice
+        if (b == s1 && s_dst[s1] == row) {  // continues past the slice: slot 1
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) s_part[(VEC + j) * kGsThreads + threadIdx.x] = acc[j];
+        } else if (cut_front) {  // slot 0
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) s_part[j * kGsThreads + threadIdx.x] = acc[j];
+        } else {
+          store_row<T, VEC>(out, row, n_rows, f, c, acc);
+        }
+        if (!cut_front) zero_gap<T, VEC>(out, s_dst[a - 1], t0 + a > 0, row, n_rows, f, c);
+        a = b;
+      }
+      const int last = s_dst[s1 - 1];
+      if (t0 + s1 == frontier && last >= 0 && last < n_rows)  // after the last live edge
+        zero_rows<T, VEC>(out, last + 1, (last | (kBlockRows - 1)) + 1, n_rows, f, c);
+    }
+    __syncthreads();
+    if (c0 == 0) K4_STAMP(2, global_ns());  // the walk of every group
+    if (s0 < s1 && col) {
+      const int first_row = s_dst[s0], last_row = s_dst[s1 - 1];
+      const bool single = first_row == last_row;
+      const bool head_cut = s_dst[s0 - 1] == first_row;
+      const bool tail_cut = s_dst[s1] == last_row;
+      // add a row's partials from this group on, in slice order, and
+      // finish the row or carry it
+      for (int which = 0; which < 2; ++which) {
+        int slot, row;
+        bool from_prev_tile;
+        if (which == 0) {  // the tile's first row, begun in an earlier tile
+          if (g != 0 || !head_cut) continue;
+          slot = single && tail_cut ? 1 : 0;
+          row = first_row;
+          from_prev_tile = true;
+        } else {  // this slice's last row, begun in this slice
+          if (!tail_cut || (single && head_cut)) continue;
+          slot = 1;
+          row = last_row;
+          from_prev_tile = false;
+        }
+        float acc[VEC];
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) acc[j] = s_part[(slot * VEC + j) * kGsThreads + threadIdx.x];
+        bool open = slot == 1;
+        for (int h = g + 1; open; ++h) {
+          const int j0 = h * slice;
+          if (j0 >= n) break;  // continues past the tile
+          const int j1 = min(j0 + slice, n);
+          const int js = (s_dst[j1 - 1] == row && s_dst[j1] == row) ? 1 : 0;
+          const int t = (h << lanes_log2) + lane;
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) acc[j] += s_part[(js * VEC + j) * kGsThreads + t];
+          open = js == 1;
+        }
+        if (open) {
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) my_carry[f + c + j] = acc[j];
+        } else if (from_prev_tile) {
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) my_carry[c + j] = acc[j];
+        } else {
+          store_row<T, VEC>(out, row, n_rows, f, c, acc);
+        }
+      }
+    }
+    __syncthreads();  // s_part is reused by the next column pass
+  }
+  // last, so that the tiles' HBM writes spread over the time they finish
+  zero_empty_blocks<T, VEC>(row_start, out, n_rows / kBlockRows, f, n_edges);
+#ifdef ALAZ_K4_TIMELINE
+  unsigned smid;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(smid));
+  K4_STAMP(3, global_ns());
+  K4_STAMP(4, smid);
+#endif
+}
+
+// K4's row starts for the COO layout, as a search of the sorted dst would
+// give them: row_start[b] is the first edge whose dst is at or past row
+// 128·b (b = 0 .. n_rows/128; the last is the live-edge frontier). One
+// pass over the edges, no search: edge e writes the blocks that start in
+// (dst[e-1], dst[e]]; the blocks up to the first edge's get 0, those past
+// the last edge's n_edges.
+__device__ __forceinline__ int floor_block(int d) {
+  return d >= 0 ? d / kBlockRows : -((kBlockRows - 1 - d) / kBlockRows);
+}
+
+__global__ void __launch_bounds__(256)
+block_starts_kernel(const int* __restrict__ dst, int* __restrict__ row_start, int n_edges,
+                    int n_blocks) {
+  launch_dependents();  // the tile kernel may start loading its ids
+  const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
+  // the blocks before the first edge's and after the last edge's, by all
+  // threads together
+  const int lead = n_edges > 0 ? min(floor_block(__ldg(dst)), n_blocks) : n_blocks;
+  const int trail = n_edges > 0 ? max(floor_block(__ldg(dst + n_edges - 1)) + 1, 0) : 0;
+  for (int b = gtid; b <= n_blocks; b += gridDim.x * blockDim.x) {
+    if (b <= lead) row_start[b] = 0;
+    else if (b >= trail) row_start[b] = n_edges;
+  }
+  // edges 1 .. n_edges-1, kStartsEdges consecutive ones a thread
+  const long long first = (long long)gtid * kStartsEdges;
+  if (first >= n_edges) return;
+  int d[kStartsEdges + 1];  // dst[first - 1 .. first + kStartsEdges - 1]
+  d[0] = first > 0 ? __ldg(dst + first - 1) : 0;
+  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0 && first + kStartsEdges <= n_edges) {
+#pragma unroll
+    for (int q = 0; q < kStartsEdges / 4; ++q) {
+      const Vec<int, 4> v = *reinterpret_cast<const Vec<int, 4>*>(dst + first + 4 * q);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) d[1 + 4 * q + k] = v.v[k];
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kStartsEdges; ++j)
+      d[1 + j] = first + j < n_edges ? __ldg(dst + first + j) : 0;
+  }
+#pragma unroll
+  for (int j = 0; j < kStartsEdges; ++j) {
+    const long long e = first + j;
+    if (e < 1 || e >= n_edges) continue;
+    const int hi = min(floor_block(d[1 + j]), n_blocks);
+    for (int b = max(floor_block(d[j]) + 1, 0); b <= hi; ++b) row_start[b] = (int)e;
+  }
+}
+
+// The rows cut by tile ends: the tile where such a row begins adds its
+// carry and those of the following tiles, in tile order, and rounds once.
+template <typename T>
+__global__ void __launch_bounds__(kGsCarryThreads)
+gather_scatter_carry_kernel(const int* __restrict__ dst, const int* __restrict__ row_start,
+                            const float* __restrict__ carry, T* __restrict__ out, int n_rows,
+                            int f, int n_edges) {
+  const int frontier = live_frontier(row_start, n_rows, n_edges);
+  const int tile = blockIdx.x;
+  const int t0 = tile * kGsTile;
+  if (t0 >= frontier) return;
+  const int t1 = min(t0 + kGsTile, frontier);
+  const int row = __ldg(dst + t1 - 1);
+  if (t1 >= frontier || __ldg(dst + t1) != row) return;  // the last row ends in this tile
+  if (__ldg(dst + t0) == row && t0 > 0 && __ldg(dst + t0 - 1) == row) return;  // begun earlier
+  if (row < 0 || row >= n_rows) return;
+  for (int c = threadIdx.x; c < f; c += kGsCarryThreads) {
+    float acc = carry[((size_t)tile * 2 + 1) * f + c];
+    for (int h = tile + 1;; ++h) {
+      const int j0 = h * kGsTile, j1 = min(j0 + kGsTile, frontier);
+      const bool through = __ldg(dst + j1 - 1) == row && j1 < frontier && __ldg(dst + j1) == row;
+      acc += carry[((size_t)h * 2 + (through ? 1 : 0)) * f + c];
+      if (!through) break;
+    }
+    out[(size_t)row * f + c] = from_f32<T>(acc);
+  }
+}
+
+// the most staging rows a tile takes while two tiles fit an SM: what
+// kGsStageBudget holds past the fixed layout, at most one per pair of
+// edges; 0 (stream only) when that is fewer than kGsStageMin
+inline int default_stage_rows(int vec, int row_bytes) {
+  const int fixed = GsLayout(vec, 1, row_bytes).rows;
+  int rows = (kGsStageBudget - fixed) / row_bytes;
+  if (rows > kGsTile / 2) rows = kGsTile / 2;
+  return rows < kGsStageMin ? 0 : rows;
+}
+
+// Launch on the stream; overlap: the kernel may start before the one
+// ahead of it on the stream ends (Programmatic Dependent Launch) and
+// waits for it in cudaGridDependencySynchronize before reading its output.
+template <typename... Params, typename... Args>
+cudaError_t launch(void (*kernel)(Params...), unsigned grid, unsigned block, int smem,
+                   cudaStream_t stream, bool overlap, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(block);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = overlap ? 1 : 0;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <typename T, int VEC>
+cudaError_t launch_gather_scatter_vec(const T* x, const int* src, const int* dst, const T* w,
+                                      int* row_start, bool find_starts, T* out, float* carry,
+                                      int n_rows, int n_rows_x, int f, int n_edges,
+                                      int stage_rows, cudaStream_t stream) {
+  const int n_tiles = (n_edges + kGsTile - 1) / kGsTile;
+  const int n_blocks = n_rows / kBlockRows;
+  const int chunks = (f + VEC - 1) / VEC;
+  int lanes_log2 = 0;
+  while ((1 << lanes_log2) < chunks && lanes_log2 < 5) ++lanes_log2;
+  const int row_bytes = f * (int)sizeof(T);
+  if (stage_rows < 0) stage_rows = default_stage_rows(VEC, row_bytes);
+  if (stage_rows > kGsTile / 2) stage_rows = kGsTile / 2;
+  if (n_rows_x <= 0) stage_rows = 0;
+  if ((long long)stage_rows * row_bytes > kMaxSmem) return cudaErrorInvalidValue;
+  const GsLayout lay(VEC, stage_rows, row_bytes);
+  if (lay.total > kMaxSmem) return cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)max(n_tiles, (n_blocks + 7) / 8);
+  cudaError_t err;
+  if (find_starts) {
+    const long long ctas = ((long long)n_edges + 256 * kStartsEdges - 1) / (256 * kStartsEdges);
+    block_starts_kernel<<<(unsigned)(ctas > 0 ? ctas : 1), 256, 0, stream>>>(dst, row_start,
+                                                                            n_edges, n_blocks);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  // overlapping the tile kernel with the one before it is safe only when
+  // that is the starts kernel: the ids it reads early may come from any
+  // earlier work
+  if (stage_rows > 0) {
+    auto kernel = gather_scatter_tile_kernel<T, VEC, true>;
+    if ((err = allow_smem(kernel, lay.total)) != cudaSuccess) return err;
+    err = launch(kernel, grid, kGsThreads, lay.total, stream, find_starts, x, src, dst, w,
+                 (const int*)row_start, out, carry, n_rows, n_rows_x, f, n_edges, lanes_log2,
+                 stage_rows);
+  } else {
+    auto kernel = gather_scatter_tile_kernel<T, VEC, false>;
+    if ((err = allow_smem(kernel, lay.total)) != cudaSuccess) return err;
+    err = launch(kernel, grid, kGsThreads, lay.total, stream, find_starts, x, src, dst, w,
+                 (const int*)row_start, out, carry, n_rows, n_rows_x, f, n_edges, lanes_log2, 0);
+  }
+  if (err != cudaSuccess || n_tiles == 0) return err;
+  gather_scatter_carry_kernel<T><<<n_tiles, kGsCarryThreads, 0, stream>>>(dst, row_start, carry,
+                                                                          out, n_rows, f, n_edges);
+  return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_gather_scatter(const void* x, const int* src, const int* dst, const void* w,
-                                  const int* row_start, void* out, int n_rows, int n_rows_x,
-                                  int f, int n_edges, int vec, cudaStream_t stream) {
-  const dim3 grid((n_rows + kWarps - 1) / kWarps);
-  const dim3 block(kWarps * 32);
+                                  int* row_start, bool find_starts, void* out, float* carry,
+                                  int n_rows, int n_rows_x, int f, int n_edges, int vec,
+                                  int stage_rows, cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
   const T* wt = static_cast<const T*>(w);
   T* o = static_cast<T*>(out);
-  if (vec == 4) {
-    gather_scatter_sum_kernel<T, 4><<<grid, block, 0, stream>>>(
-        xt, src, dst, wt, row_start, o, n_rows, n_rows_x, f, n_edges);
-  } else if (vec == 1) {
-    gather_scatter_sum_kernel<T, 1><<<grid, block, 0, stream>>>(
-        xt, src, dst, wt, row_start, o, n_rows, n_rows_x, f, n_edges);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  if (vec * (int)sizeof(T) == 16)
+    return launch_gather_scatter_vec<T, 16 / sizeof(T)>(xt, src, dst, wt, row_start, find_starts,
+                                                         o, carry, n_rows, n_rows_x, f, n_edges,
+                                                         stage_rows, stream);
+  if (vec == 4 && sizeof(T) == 2)
+    return launch_gather_scatter_vec<T, 4>(xt, src, dst, wt, row_start, find_starts, o, carry,
+                                           n_rows, n_rows_x, f, n_edges, stage_rows, stream);
+  if (vec == 1)
+    return launch_gather_scatter_vec<T, 1>(xt, src, dst, wt, row_start, find_starts, o, carry,
+                                           n_rows, n_rows_x, f, n_edges, stage_rows, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -373,22 +1118,48 @@ int alaz_gather_rows_banded(const void* v, const void* ids, void* out, int n_row
 
 // K4. x [n_rows_x, f] (dtype), src and dst [n_edges] int32 with dst
 // sorted, w [n_edges] (dtype) or null for no weights, row_start
-// [n_rows/128 + 1] int32, out [n_rows, f] (dtype).
-// vec: 4 when f % 4 == 0 and x and out are 16-byte aligned, else 1.
+// [n_rows/128 + 1] int32 (its last entry is the live-edge frontier;
+// find_starts != 0: computed here from dst, as the COO layout's search),
+// out [n_rows, f] (dtype), carry [ceil(n_edges / tile), 2, f] f32
+// scratch (tile: alaz_gather_scatter_tile_edges()).
+// vec: elements a lane moves at once; 16 bytes' worth (8 bf16, 4 f32)
+// or 4 bf16 when f is a multiple and x and out are aligned to it, else 1.
+// stage_rows: src rows staged in shared memory per tile; 0 reads every
+// row from L2, -1 takes the default.
 int alaz_gather_scatter_sum(const void* x, const void* src, const void* dst, const void* w,
-                            const void* row_start, void* out, int n_rows, int n_rows_x, int f,
-                            int n_edges, int dtype, int vec, void* stream) {
+                            void* row_start, int find_starts, void* out, void* carry, int n_rows,
+                            int n_rows_x, int f, int n_edges, int dtype, int vec, int stage_rows,
+                            void* stream) {
   const int* sp = static_cast<const int*>(src);
   const int* dp = static_cast<const int*>(dst);
-  const int* rs = static_cast<const int*>(row_start);
+  int* rs = static_cast<int*>(row_start);
+  float* cy = static_cast<float*>(carry);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
-    return launch_gather_scatter<float>(x, sp, dp, w, rs, out, n_rows, n_rows_x, f, n_edges, vec, s);
+    return launch_gather_scatter<float>(x, sp, dp, w, rs, find_starts != 0, out, cy, n_rows,
+                                        n_rows_x, f, n_edges, vec, stage_rows, s);
   if (dtype == kBF16)
-    return launch_gather_scatter<__nv_bfloat16>(x, sp, dp, w, rs, out, n_rows, n_rows_x, f,
-                                                n_edges, vec, s);
+    return launch_gather_scatter<__nv_bfloat16>(x, sp, dp, w, rs, find_starts != 0, out, cy,
+                                                n_rows, n_rows_x, f, n_edges, vec, stage_rows, s);
   return cudaErrorInvalidValue;
 }
+
+// K4's live edges per tile: the carry scratch has 2 rows per tile.
+int alaz_gather_scatter_tile_edges(void) { return kGsTile; }
+
+// The most staging rows a K4 tile takes while two tiles fit an SM (what
+// stage_rows = -1 asks for).
+int alaz_gather_scatter_default_stage_rows(int dtype, int vec, int f) {
+  const int elt = dtype == kF32 ? 4 : 2;
+  return default_stage_rows(vec, f * elt);
+}
+
+#ifdef ALAZ_K4_TIMELINE
+// Copy K4's timeline of the last launch ([kTimelineCtas, 5] u64) to host.
+int alaz_k4_timeline(void* host) {
+  return cudaMemcpyFromSymbol(host, g_k4_timeline, sizeof(g_k4_timeline));
+}
+#endif
 
 const char* alaz_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -27,6 +27,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+# K4's phase timeline (csrc/segment.cu ALAZ_K4_TIMELINE), for measurement only
+TIMELINE_FLAGS = ("-DALAZ_K4_TIMELINE",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,7 +38,11 @@ _SIGNATURES = {
     "alaz_scatter_sum_sorted": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "alaz_segment_expand_sorted": (_I, [_P, _P, _P, _I, _I, ctypes.c_longlong, _I, _P]),
     "alaz_gather_rows_banded": (_I, [_P, _P, _P, _I, _I, ctypes.c_longlong, _I, _P]),
-    "alaz_gather_scatter_sum": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "alaz_gather_scatter_sum": (
+        _I, [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+    ),
+    "alaz_gather_scatter_tile_edges": (_I, []),
+    "alaz_gather_scatter_default_stage_rows": (_I, [_I, _I, _I]),
     "alaz_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -57,18 +63,19 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build(name: str = "segment") -> Built:
+def build(name: str = "segment", extra_flags: tuple = ()) -> Built:
     """Compile ``csrc/<name>.cu`` unless this exact source and flag set
     was built already."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = (*NVCC_FLAGS, *extra_flags)
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"libalaz_{name}-{digest}.so"
     log_path = out.with_suffix(".log")
     if out.exists() and log_path.exists():
         return Built(out, log_path.read_text())
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [nvcc_path(), *flags, "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
@@ -83,17 +90,32 @@ _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
 
 
+def _load(path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for fn, (restype, argtypes) in _SIGNATURES.items():
+        getattr(lib, fn).restype = restype
+        getattr(lib, fn).argtypes = argtypes
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The kernels' library, built and loaded once per process."""
     global _LIB
     with _LOCK:
         if _LIB is None:
-            lib = ctypes.CDLL(str(build().path))
-            for fn, (restype, argtypes) in _SIGNATURES.items():
-                getattr(lib, fn).restype = restype
-                getattr(lib, fn).argtypes = argtypes
-            _LIB = lib
+            _LIB = _load(build().path)
         return _LIB
+
+
+def timeline_library() -> ctypes.CDLL:
+    """The kernels built with K4's phase timeline: the same entry points,
+    plus ``alaz_k4_timeline(host)``, which copies the last K4 launch's
+    per-tile timestamps ([4096, 5] u64: start, ids loaded, walk done, end
+    in %globaltimer ns, and the SM). For measurement, never for serving."""
+    lib = _load(build(extra_flags=TIMELINE_FLAGS).path)
+    lib.alaz_k4_timeline.restype = _I
+    lib.alaz_k4_timeline.argtypes = [_P]
+    return lib
 
 
 def check(rc: int, what: str) -> None:

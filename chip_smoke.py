@@ -9,7 +9,8 @@ Phases, each raising on failure:
 
 1. build     -- compile ``alaz_tpu_torch/csrc/segment.cu`` with nvcc into
                 ``build/alaz_tpu_torch/`` and print ptxas's register,
-                shared-memory and spill lines;
+                shared-memory and spill lines; its K4-timeline build
+                compiles alongside;
 2. layout    -- the GAT windows' ``cluster_renumber`` pass: its host
                 seconds per window and the src-locality gauges of each
                 window with and without it;
@@ -17,7 +18,8 @@ Phases, each raising on failure:
                 on the card, at the scoring paths' shapes (E=1,048,576
                 edges, N=131,072 nodes, F=128): K1 and K2 on the uniform
                 GraphSAGE window's dst ids, K3 on the clustered GAT window's
-                and on the uniform window's src ids, K4 on the GAT window;
+                and on the uniform window's src ids, K4 on both windows
+                (COO = blocked bit for bit, two calls alike);
 4. slice     -- three uniform windows of bucket n131072xe1048576 scored
                 through ``WindowScorer`` under the default ``ModelConfig``
                 (GraphSAGE, hidden 128, 2 layers, bf16, kernels on), with
@@ -32,9 +34,13 @@ Phases, each raising on failure:
 6. op path   -- the public ``ops.gather_scatter_sum`` (K4) over the GAT
                 windows' edges, launch counts read around those calls;
 7. numbers   -- kernel times (CUDA events), bounds, plain-version and
-                library-call times, per-window score time of both models,
-                and a profile of the device time by kernel over scored
-                windows of each.
+                library-call times; for K4 on each window also its device
+                time without the host's, the CUPTI time of its three
+                kernels, the window's tile and reuse counts, its phase
+                timeline, its time with every edge on one src row, and
+                staging (off by default) against streaming; per-window score time
+                of both models, and a profile of the device time by kernel
+                over scored windows of each.
 
 Output: JSON lines for each phase, then the kernels' JSON line, the
 card's name and power limit, and last the result line
@@ -50,6 +56,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -90,11 +97,16 @@ def _counts(k1: int, k2: int, k3: int, k4: int) -> dict:
 
 
 def phase_build() -> None:
+    """Build the kernels and, in parallel, their K4-timeline build (one nvcc
+    each, started together)."""
     from alaz_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
+    timeline = threading.Thread(target=_build.build, kwargs={"extra_flags": _build.TIMELINE_FLAGS})
+    timeline.start()
     built = _build.build()
     _build.library()
+    timeline.join()
     seconds = time.perf_counter() - t0
     for line in built.log.splitlines():
         if any(k in line for k in ("Compiling entry", "registers", "spill", "smem")):
@@ -205,28 +217,32 @@ def phase_kernels(batch, gat_batch, dev: torch.device) -> dict:
             require(torch.equal(got, ref), f"k3_{dname}_{ids_name} is not bit-exact")
             errs[f"k3_{dname}_{ids_name}"] = float((got.float() - ref.float()).abs().max())
 
-    # K4 on the GAT window, with and without weights; COO and blocked row
-    # starts must give the same rows bit for bit
-    src = torch.as_tensor(gat_batch.edge_src, device=dev)
-    dst = torch.as_tensor(gat_batch.edge_dst, device=dev)
-    gbs = torch.as_tensor(gat_batch.block_starts(), device=dev)
-    w = torch.rand(dst.shape[0], generator=gen, device=dev) + 0.5
-    for dname, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
-        x = torch.randn((gat_batch.n_pad, F_MAIN), generator=gen, device=dev).to(dtype)
-        for wname, ww in (("w", w), ("now", None)):
-            coo = K.pallas_gather_scatter_sum(x, src, dst, gat_batch.n_pad, ww)
-            blk = K.pallas_gather_scatter_sum(x, src, dst, gat_batch.n_pad, ww, gbs)
-            ref = K.pallas_gather_scatter_sum_plain(x, src, dst, gat_batch.n_pad, ww)
-            _sync(dev)
-            err = (coo.float() - ref.float()).abs()
-            name = f"k4_{dname}_{wname}"
-            require(coo.dtype == dtype, f"{name}: dtype {coo.dtype}")
-            require(bool((err <= _k1_tolerance(ref)).all()), f"{name} disagrees with its plain version")
-            require(
-                torch.equal(coo[: gat_batch.n_nodes], blk[: gat_batch.n_nodes]),
-                f"{name}: blocked rows differ from COO rows",
-            )
-            errs[name] = float(err.max())
+    # K4 on the GAT window and on the uniform one, with and without
+    # weights; COO and blocked row starts must give the same rows bit for
+    # bit, and a second call the same bits
+    for win, b in (("", gat_batch), ("_uniform", batch)):
+        src = torch.as_tensor(b.edge_src, device=dev)
+        dst = torch.as_tensor(b.edge_dst, device=dev)
+        gbs = torch.as_tensor(b.block_starts(), device=dev)
+        w = torch.rand(dst.shape[0], generator=gen, device=dev) + 0.5
+        for dname, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            x = torch.randn((b.n_pad, F_MAIN), generator=gen, device=dev).to(dtype)
+            for wname, ww in (("w", w), ("now", None)):
+                coo = K.pallas_gather_scatter_sum(x, src, dst, b.n_pad, ww)
+                blk = K.pallas_gather_scatter_sum(x, src, dst, b.n_pad, ww, gbs)
+                ref = K.pallas_gather_scatter_sum_plain(x, src, dst, b.n_pad, ww)
+                _sync(dev)
+                err = (coo.float() - ref.float()).abs()
+                name = f"k4_{dname}_{wname}{win}"
+                require(coo.dtype == dtype, f"{name}: dtype {coo.dtype}")
+                require(bool((err <= _k1_tolerance(ref)).all()), f"{name} disagrees with its plain version")
+                require(
+                    torch.equal(coo[: b.n_nodes], blk[: b.n_nodes]),
+                    f"{name}: blocked rows differ from COO rows",
+                )
+                require(torch.equal(coo, K.pallas_gather_scatter_sum(x, src, dst, b.n_pad, ww)),
+                        f"{name}: two calls differ")
+                errs[name] = float(err.max())
     emit("kernels_vs_plain", {
         "tolerance": "K2, K3 bit-exact; K1, K4 f32 within 1e-5 of max|out|, bf16 within one bf16 ulp",
         "max_abs_err": errs,
@@ -495,17 +511,23 @@ def numbers_k1_k2(batches, dev) -> dict:
     rows_read = int(torch.unique(edge_dst).numel())
     k2_bytes = e * 4 + e * f * 2 + rows_read * f * 2
 
-    # the other K1 variants the ops expose, for the record
+    # the other K1 variants the ops expose, for the record; the f32 inputs
+    # are cast once, outside the timed calls
+    msgs32, v32 = msgs.float(), v.float()
+    acc32 = torch.zeros((N_MAIN, f), dtype=torch.float32, device=dev)
     variants = {
-        "k1_f32_ms": time_ms(lambda: K.scatter_sum_sorted(msgs.float(), edge_dst, N_MAIN), iters=20),
+        "k1_f32_ms": time_ms(lambda: K.scatter_sum_sorted(msgs32, edge_dst, N_MAIN), iters=20),
+        "k1_f32_bound_ms": _bound(e * (f * 4 + 4) + N_MAIN * f * 4 + (N_MAIN // 128 + 1) * 4, e * f)[0],
+        "k1_f32_index_add_ms": time_ms(lambda: acc32.index_add_(0, edge_dst, msgs32), iters=20),
         "k1_bf16_to_f32_ms": time_ms(
             lambda: K.scatter_sum_sorted(msgs, edge_dst, N_MAIN, torch.float32), iters=20),
         "k1_bf16_blocked_ms": time_ms(
             lambda: K.scatter_sum_sorted(msgs, edge_dst, N_MAIN, None, bs), iters=20),
-        "k2_f32_ms": time_ms(lambda: K.segment_expand_sorted(v.float(), edge_dst, N_MAIN), iters=20),
+        "k2_f32_ms": time_ms(lambda: K.segment_expand_sorted(v32, edge_dst, N_MAIN), iters=20),
         "k1_nonempty_rows": rows_read,
         "k1_nonempty_blocks": int(((bs[1:] - bs[:-1]) > 0).sum()),
     }
+    del msgs32, v32, acc32
     emit("kernel_variants", variants)
     return {
         "k1": (k1_ms, k1_plain_ms, _bound(k1_bytes, e * f), k1_lib_ms),
@@ -515,9 +537,9 @@ def numbers_k1_k2(batches, dev) -> dict:
 
 def numbers_k3_k4(batches, gat_batches, dev) -> dict:
     """K3 as the GAT path calls it (bf16 [N, 128] rows gathered by src), on
-    the clustered GAT window's ids and on the uniform window's; K4 on the
-    GAT window (bf16, F=128, weighted), with ``torch.sparse.mm`` over a CSR
-    of the same edges as its library call."""
+    the clustered GAT window's ids and on the uniform window's; K4 on both
+    windows' edges (``numbers_k4``). The kernels line takes K4's numbers on
+    the clustered window."""
     from alaz_tpu_torch.ops import segment_kernels as K
 
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -538,38 +560,170 @@ def numbers_k3_k4(batches, gat_batches, dev) -> dict:
         }
     emit("k3_by_ids", {k: dict(d, bound=list(d["bound"])) for k, d in k3.items()})
 
-    b = gat_batches[0]
+    k4 = {}
+    x = torch.randn((N_MAIN, f), generator=gen, device=dev).bfloat16()
+    for win, b in (("clustered", gat_batches[0]), ("uniform", batches[0])):
+        k4[win] = numbers_k4(b, x, gen, dev)
+        emit(f"k4_{win}", {k: (list(v) if k == "bound" else v) for k, v in k4[win].items()})
+    c = k4["clustered"]
+    return {"k3": k3, "k4": (c["ms"], c["plain_ms"], c["bound"], c["library_ms"])}
+
+
+def k4_window_stats(b, tile: int) -> dict:
+    """What sets K4's work on a window: its tiles, the dst blocks that hold
+    edges, and how often a src row recurs within a 128-row dst block and
+    within a tile (what staging could save)."""
+    n = b.n_edges
+    dst = b.edge_dst[:n].astype(np.int64)
+    src = b.edge_src[:n].astype(np.int64)
+    block = dst // 128
+    tile_of = np.arange(n) // tile
+    return {
+        "tiles": -(-b.e_pad // tile),
+        "live_tiles": -(-n // tile),
+        "busy_blocks": int(np.unique(block).size),
+        "edges_per_distinct_src_per_block": n / np.unique(block * (1 << 32) + src).size,
+        "edges_per_distinct_src_per_tile": n / np.unique(tile_of * (1 << 32) + src).size,
+    }
+
+
+def device_ms(fn, reps: int = 7) -> float:
+    """Device time of one call without the host's: the stream is held by a
+    sleep kernel while the call is enqueued, so the CUDA events bracket its
+    kernels only. Median over ``reps``."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(2_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def cupti_us(fn, names, calls: int = 10) -> dict:
+    """Device time per call of each named kernel (torch.profiler, CUPTI)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            for name in names:
+                if name in evt.key:
+                    out[name] += evt.self_device_time_total / calls
+    return out
+
+
+K4_KERNELS = ("block_starts_kernel", "gather_scatter_tile_kernel", "gather_scatter_carry_kernel")
+
+
+def k4_timeline(call, n_tiles: int) -> dict:
+    """One call through the kernels' timeline build: per tile, the time to
+    get its ids into shared memory, to walk, and to combine and finish
+    (including its share of the empty blocks), in µs, and when the tiles
+    start and end relative to the first."""
+    from alaz_tpu_torch.ops import _build
+
+    lib = _build.timeline_library()
+    saved = _build._LIB
+    _build._LIB = lib
+    try:
+        call()
+        torch.cuda.synchronize()
+    finally:
+        _build._LIB = saved
+    stamps = np.zeros(4096 * 5, dtype=np.uint64)
+    require(lib.alaz_k4_timeline(stamps.ctypes.data) == 0, "K4 timeline copy failed")
+    t = stamps.reshape(-1, 5)[: min(n_tiles, 4096)].astype(np.int64)
+    t0 = t[:, 0].min()
+    us = lambda a: float(a.mean()) / 1e3
+    quantiles = lambda a: [float(q) / 1e3 for q in np.quantile(a - t0, [0, 0.5, 0.9, 1])]
+    return {
+        "tiles": len(t),
+        "span_us": float(t[:, 3].max() - t0) / 1e3,
+        "tile_us": us(t[:, 3] - t[:, 0]),
+        "load_us": us(t[:, 1] - t[:, 0]),
+        "walk_us": us(t[:, 2] - t[:, 1]),
+        "combine_us": us(t[:, 3] - t[:, 2]),
+        "start_us_quantiles": quantiles(t[:, 0]),
+        "end_us_quantiles": quantiles(t[:, 3]),
+        "most_tiles_on_one_sm": int(np.bincount(t[:, 4]).max()),
+    }
+
+
+def numbers_k4(b, x, gen, dev) -> dict:
+    """K4 on one window's edges (bf16, F=128, weighted, COO): back-to-back
+    CUDA-event time, device time of one call, CUPTI time of its three
+    kernels, its bound, the plain version, ``torch.sparse.mm`` over a CSR of
+    the same edges, and staging (off by default) against streaming."""
+    from alaz_tpu_torch.ops import segment_kernels as K
+
+    f = x.shape[1]
     src = torch.as_tensor(b.edge_src, device=dev)
     dst = torch.as_tensor(b.edge_dst, device=dev)
     e = dst.shape[0]
-    x = torch.randn((N_MAIN, f), generator=gen, device=dev).bfloat16()
     w = (torch.rand(e, generator=gen, device=dev) + 0.5).bfloat16()
-    k4_ms = time_ms(lambda: K.pallas_gather_scatter_sum(x, src, dst, N_MAIN, w))
-    k4_plain_ms = time_ms(lambda: K.pallas_gather_scatter_sum_plain(x, src, dst, N_MAIN, w))
+
+    def call():
+        return K.pallas_gather_scatter_sum(x, src, dst, N_MAIN, w)
+
     rows_read = int(torch.unique(src).numel())
     k4_bytes = 2 * e * 4 + e * 2 + rows_read * f * 2 + N_MAIN * f * 2 + (N_MAIN // 128 + 1) * 4
+    out = dict(k4_window_stats(b, K.gather_scatter_tile_edges()), src_rows_read=rows_read)
+    out["ms"] = time_ms(call)
+    out["device_ms"] = device_ms(call)
+    cupti = cupti_us(call, K4_KERNELS)
+    out["cupti_us"] = cupti
+    out["cupti_ms_total"] = sum(cupti.values()) / 1e3
+    out["plain_ms"] = time_ms(lambda: K.pallas_gather_scatter_sum_plain(x, src, dst, N_MAIN, w), iters=10)
+    # what the kernel's one-pass row starts replace: the COO layout's search
+    bounds = torch.arange(0, N_MAIN + 1, 128, dtype=torch.int32, device=dev)
+    out["searchsorted_row_starts_ms"] = time_ms(
+        lambda: torch.searchsorted(dst, bounds, out_int32=True)
+    )
+    out["bound"] = _bound(k4_bytes, 2 * e * f)
     # library call: one CSR product out = A @ x, A[d, s] = Σ w over the
     # edges s→d, built once outside the timing (crow: each row's start in
     # the dst-sorted edges, col: src, values: w)
     crow = torch.searchsorted(
         dst, torch.arange(N_MAIN + 1, dtype=torch.int32, device=dev), out_int32=True
     ).long()
-    lib = {"call": "torch.sparse.mm(csr[N, N], x[N, 128])"}
     try:
         csr = torch.sparse_csr_tensor(crow, src.long(), w, size=(N_MAIN, N_MAIN))
-        lib["ms"] = time_ms(lambda: torch.sparse.mm(csr, x))
-        lib["dtype"] = "bfloat16"
+        out["library_ms"] = time_ms(lambda: torch.sparse.mm(csr, x))
+        out["library"] = "torch.sparse.mm(csr[N, N] bf16, x[N, 128])"
     except RuntimeError as exc:
-        lib["bf16_refused"] = str(exc).splitlines()[0][:200]
         csr = torch.sparse_csr_tensor(crow, src.long(), w.float(), size=(N_MAIN, N_MAIN))
         x32 = x.float()
-        lib["ms"] = time_ms(lambda: torch.sparse.mm(csr, x32))
-        lib["dtype"] = "float32 (bf16 refused)"
-    emit("k4_library", lib)
-    return {
-        "k3": k3,
-        "k4": (k4_ms, k4_plain_ms, _bound(k4_bytes, 2 * e * f), lib["ms"]),
+        out["library_ms"] = time_ms(lambda: torch.sparse.mm(csr, x32))
+        out["library"] = f"torch.sparse.mm in f32 (bf16 refused: {str(exc).splitlines()[0][:120]})"
+    # every edge reading one row: the time without the L2 row reads
+    same_row = torch.zeros_like(src)
+    out["same_src_row_device_ms"] = device_ms(
+        lambda: K.pallas_gather_scatter_sum(x, same_row, dst, N_MAIN, w)
+    )
+    out["timeline"] = k4_timeline(call, out["live_tiles"])
+    cap = K.gather_scatter_stage_capacity(x)
+    staged = lambda: K.pallas_gather_scatter_sum(x, src, dst, N_MAIN, w, stage_rows=cap)
+    out["staging"] = {
+        "stage_rows": cap,
+        "ms": time_ms(staged),
+        "device_ms": device_ms(staged),
+        "equals_streamed": bool(torch.equal(staged(), call())),
     }
+    require(out["staging"]["equals_streamed"], "K4: staged rows differ from streamed rows")
+    return out
 
 
 def numbers_window(tag: str, scorer, batches, apply, other_cfg=None) -> dict:

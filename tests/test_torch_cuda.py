@@ -38,6 +38,14 @@ def _sorted_dst(n_pad, e, seed, hub=False):
     return np.sort(dst).astype(np.int32)
 
 
+def _k4_plain_on_cpu(x, src, dst, n_pad, w=None):
+    """K4's plain version on CPU copies: summed in edge order, not by the
+    card's atomics."""
+    return K.pallas_gather_scatter_sum_plain(
+        x.cpu(), src.cpu(), dst.cpu(), n_pad, None if w is None else w.cpu()
+    )
+
+
 def _assert_k1_close(got, ref):
     scale = 1e-5 * float(ref.float().abs().max())
     err = (got.float() - ref.float()).abs()
@@ -174,7 +182,10 @@ def test_gather_rows_banded_out_of_range_id_gives_zero_row(dev):
 @pytest.mark.parametrize("hub", [False, True])
 def test_gather_scatter_sum_matches_plain(dev, dtype, f, weighted, hub):
     """Odd widths, E off the 128 grid, empty dst blocks (the upper half of
-    the rows), and a hub row of 10,000 edges."""
+    the rows), and a hub row of 10,000 edges. The plain version runs on
+    the CPU: on the card its ``index_add_`` adds with atomics in a varying
+    order, which alone moves the f32 hub row by up to ~1.4e-2, most of the
+    tolerance."""
     n_pad, n_x = 512, 300
     e = 10_000 + 1000 if hub else 3000 - 37
     dst = _sorted_dst(n_pad, e, f)
@@ -191,7 +202,7 @@ def test_gather_scatter_sum_matches_plain(dev, dtype, f, weighted, hub):
     blk = K.pallas_gather_scatter_sum(x, src, d, n_pad, w, bs)
     assert K.pallas_gather_scatter_sum.launches == before + 2
     assert coo.dtype == dtype and coo.shape == (n_pad, f)
-    _assert_k1_close(coo, K.pallas_gather_scatter_sum_plain(x, src, d, n_pad, w))
+    _assert_k1_close(coo.cpu(), _k4_plain_on_cpu(x, src, d, n_pad, w))
     assert torch.equal(coo, blk)  # no pad edges here: every row agrees
     assert float(coo[n_pad // 2 :].float().abs().max()) == 0.0
 
@@ -240,3 +251,91 @@ def test_gat_on_card_matches_cpu(dev):
         r, g = ref[key][:n], got[key][:n].cpu()
         assert float((g - r).abs().max()) <= 2.0**-6 * float(r.abs().max())
     assert float(got["attn_clamp_saturation"]) == float(ref["attn_clamp_saturation"])
+
+
+# -- K4's edge-balanced tiles ------------------------------------------------
+
+
+def _k4_dst(case: str, tile: int, rng) -> tuple:
+    """(dst sorted, n_pad) for a K4 tile case; ``tile`` is the kernel's
+    live edges per tile."""
+    if case == "below_one_tile":
+        return np.sort(rng.integers(0, 200, tile // 3)).astype(np.int32), 256
+    if case == "hub_tiles":  # one row 3.5 tiles long, begun mid-tile
+        dst = np.concatenate([
+            np.sort(rng.integers(0, 40, tile // 2)),
+            np.full(7 * tile // 2, 40),
+            np.sort(rng.integers(41, 300, tile)),
+        ])
+        return dst.astype(np.int32), 512
+    if case == "smoke_like":  # busy rows in the first 5 of 64 blocks, ~100 edges each
+        return np.sort(rng.integers(0, 640, 64_000)).astype(np.int32), 8192
+    # runs of 1-40 edges; one row across the first tile end, one row
+    # ending exactly on the second
+    runs = rng.integers(1, 41, 3 * tile)
+    dst = np.repeat(np.arange(runs.shape[0]) * 2, runs)[: 3 * tile]
+    if case == "straddle":
+        dst[tile - 10 : tile + 10] = dst[tile - 11] + 1
+        dst[tile + 10 :] = np.maximum(dst[tile + 10 :], dst[tile - 11] + 2)
+    elif case == "tile_end_on_row_end":
+        dst[2 * tile :] += 1
+        dst[2 * tile - 5 : 2 * tile] = dst[2 * tile - 6]
+    return dst.astype(np.int32), ((int(dst[-1]) // 128) + 2) * 128
+
+
+@pytest.mark.parametrize(
+    "case", ["straddle", "tile_end_on_row_end", "hub_tiles", "smoke_like", "below_one_tile"]
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_scatter_tiles(dev, case, dtype):
+    """K4's partition at the places it can go wrong: rows cut by a tile
+    end and rows ending on one, a hub row several tiles long, a window
+    whose edges sit in a few dst blocks, fewer edges than one tile. Held
+    to the plain version; two calls, COO and blocked row starts, and
+    staged and streamed src rows all give the same bits; rows without
+    edges are zeros. The plain version runs on the CPU, as above. Staging
+    is off by default; staged rows give the streamed bits."""
+    tile = K.gather_scatter_tile_edges()
+    rng = np.random.default_rng(7)
+    dst, n_pad = _k4_dst(case, tile, rng)
+    e = dst.shape[0]
+    if case == "straddle":
+        assert dst[tile - 1] == dst[tile]
+    if case == "tile_end_on_row_end":
+        assert dst[2 * tile - 1] != dst[2 * tile] and dst[2 * tile - 2] == dst[2 * tile - 1]
+    n_x = 3000
+    # reused rows, as in clustered windows
+    src = (dst.astype(np.int64) * 7 + rng.integers(0, 20, e)) % n_x
+    d = torch.as_tensor(dst, device=dev)
+    s = torch.as_tensor(src.astype(np.int32), device=dev)
+    bounds = np.arange(0, n_pad + 1, 128)
+    bs = torch.as_tensor(np.searchsorted(dst, bounds).astype(np.int32), device=dev)
+    x = torch.randn((n_x, 128), device=dev).to(dtype)
+    w = torch.rand(e, device=dev) + 0.5
+    got = K.pallas_gather_scatter_sum(x, s, d, n_pad, w)
+    _assert_k1_close(got.cpu(), _k4_plain_on_cpu(x, s, d, n_pad, w))
+    assert torch.equal(got, K.pallas_gather_scatter_sum(x, s, d, n_pad, w))
+    assert torch.equal(got, K.pallas_gather_scatter_sum(x, s, d, n_pad, w, bs))
+    for stage_rows in (16, K.gather_scatter_stage_capacity(x)):
+        staged = K.pallas_gather_scatter_sum(x, s, d, n_pad, w, stage_rows=stage_rows)
+        assert torch.equal(got, staged)
+    empty = torch.ones(n_pad, dtype=torch.bool, device=dev)
+    empty[d.long()] = False
+    assert float(got[empty].float().abs().max()) == 0.0
+
+
+def test_gather_scatter_staged_equals_streamed_on_uniform_ids(dev):
+    """Staging (off by default) on ids with little reuse, at capacities up
+    to the most that fits, gives the streamed bits."""
+    rng = np.random.default_rng(3)
+    n_pad, e = 4096, 20_000
+    dst = np.sort(rng.integers(0, 1000, e)).astype(np.int32)
+    d = torch.as_tensor(dst, device=dev)
+    s = torch.randint(0, n_pad, (e,), dtype=torch.int32, device=dev)
+    x = torch.randn((n_pad, 128), device=dev).bfloat16()
+    streamed = K.pallas_gather_scatter_sum(x, s, d, n_pad)
+    for stage_rows in (1, 64, K.gather_scatter_stage_capacity(x)):
+        staged = K.pallas_gather_scatter_sum(x, s, d, n_pad, stage_rows=stage_rows)
+        assert torch.equal(streamed, staged)
+    with pytest.raises(ValueError, match="stage_rows"):
+        K.pallas_gather_scatter_sum(x, s, d, n_pad, stage_rows=-2)
