@@ -96,17 +96,13 @@
 //       busy blocks by the tiles (gaps between dst values as zeros), the
 //       empty 128-row blocks by the tile CTAs after their walks.
 //     - Row starts. The COO layout's starts come from a one-pass kernel
-//       (no search), launched ahead of the tiles, which overlap it
-//       (Programmatic Dependent Launch) while they load their ids.
-//     - Staging (stage_rows > 0; off by default). The tile sorts its (src,
-//       position) pairs (a block radix sort), and each src row used twice
-//       or more in the tile is copied once into shared memory, up to
-//       stage_rows rows; the walk reads those rows there and the rest from
-//       L2. Only where a row is read changes, never the order of the sums,
-//       so staged and streamed results are equal bit for bit. On the H100
-//       it halves the walk on the clustered window but loses overall: the
-//       sort lengthens each tile and the staged rows' shared memory halves
-//       the CTAs an SM (chip_smoke.py prints both).
+//       (no search) launched ahead of the tiles.
+//     - Not kept: staging each tile's reused src rows in shared memory
+//       (a block sort of the tile's src ids, each row used twice or more
+//       copied in once). It halved the walk on the clustered window but
+//       made K4 slower on both windows: the sort lengthened every tile,
+//       and the staged rows' shared memory halved the CTAs an SM
+//       (PERF.md, PR 3).
 //     What sets the pace on the H100 (PERF.md): the walks' L2 reads, at
 //     ~8 TB/s while the tiles walk, the tiles' load and combine phases
 //     that the two waves run side by side, and the two small kernels.
@@ -298,39 +294,26 @@ constexpr int kGsUnroll = 8;                    // x rows in flight per lane
 constexpr int kGsMinBlocks = 4;                 // tile CTAs an SM holds (64 registers a thread)
 constexpr int kGsCarryThreads = 128;            // threads per carry CTA
 constexpr int kStartsEdges = 16;                // edges per thread of the row-starts kernel
-constexpr int kRadixBits = 4;                   // digit of the tile's src sort
-constexpr int kRadixBins = 1 << kRadixBits;
 constexpr int kNoRow = INT_MIN;                 // dst halo past either end of the live edges
-// dynamic shared memory a staging tile may take: two CTAs an SM
-constexpr int kGsStageBudget = 112 * 1024;
-constexpr int kGsStageMin = 16;       // fewer staging rows than this: stream only
-constexpr int kMaxSmem = 232448;      // per CTA on the H100 (227 KB)
-// the sort's keys, positions and (digit, thread) counts
-constexpr int kGsSortBytes = 4 * kGsTile + 2 * kGsTile + 2 * kRadixBins * kGsThreads;
+constexpr int kMaxSmem = 232448;                // shared memory per CTA on the H100 (227 KB)
 
 __host__ __device__ constexpr int align16(int b) { return (b + 15) & ~15; }
 
 // Byte offsets of a K4 tile's dynamic shared memory: dst with a one-id
-// halo on each side; each edge's row address (a generic pointer: an x
-// row, a staged row, or the zero row); weights; the starts of the tile's
-// runs of equal dst; each edge's staging slot; one scratch region (the src
-// ids and, while staging, the sort's keys, positions and digit counts;
-// the slices' f32 partial sums during the walk); a row of zeros; the
-// staged rows.
+// halo on each side; each edge's row address (a generic pointer: an x row
+// or the zero row); weights; the starts of the tile's runs of equal dst;
+// one scratch region (the src ids, then the slices' f32 partial sums);
+// a row of zeros.
 struct GsLayout {
-  int addr, w, runs, slot, scratch, zero, rows, total;
-  __host__ __device__ GsLayout(int vec, int stage_rows, int row_bytes) {
-    const bool stage = stage_rows > 0;
+  int addr, w, runs, scratch, zero, total;
+  __host__ __device__ GsLayout(int vec, int row_bytes) {
     addr = align16(4 * (kGsTile + 2));
     w = addr + 8 * kGsTile;
     runs = w + 4 * kGsTile;
-    slot = align16(runs + 2 * (kGsTile + 1));
-    scratch = slot + (stage ? 2 * kGsTile : 0);
+    scratch = align16(runs + 2 * (kGsTile + 1));
     const int part = 2 * vec * kGsThreads * 4;
-    const int ids = 4 * kGsTile + (stage ? kGsSortBytes : 0);
-    zero = align16(scratch + (ids > part ? ids : part));
-    rows = align16(zero + row_bytes);
-    total = rows + (stage ? stage_rows * row_bytes : 0);
+    zero = align16(scratch + (4 * kGsTile > part ? 4 * kGsTile : part));
+    total = zero + row_bytes;
   }
 };
 
@@ -484,119 +467,6 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* s_warp, int& tot
   return before + x - v;
 }
 
-// Staging: sort the tile's (src, position) pairs by src (LSD radix sort,
-// kRadixBits a pass, each thread holding kGsItems consecutive pairs, so
-// the sort is stable), give every src used twice or more a slot in
-// sorted order, up to capacity, record each edge's slot (-1: read from
-// L2) and copy each slotted row once into s_rows. Returns the rows
-// staged. Every thread of the CTA must call it.
-template <typename T, int VEC>
-__device__ int stage_tile_rows(const T* __restrict__ x, const int* s_src, short* s_slot,
-                               unsigned char* scratch, T* s_rows, int* s_warp, int n,
-                               int n_rows_x, int f, int capacity) {
-  int* s_key = reinterpret_cast<int*>(scratch);
-  short* s_pos = reinterpret_cast<short*>(scratch + 4 * kGsTile);
-  unsigned short* s_cnt = reinterpret_cast<unsigned short*>(scratch + 6 * kGsTile);
-  int* s_stage_src = reinterpret_cast<int*>(s_cnt);  // after the sort
-  const int t = threadIdx.x;
-  int key[kGsItems], pos[kGsItems];
-#pragma unroll
-  for (int k = 0; k < kGsItems; ++k) {
-    const int i = t * kGsItems + k;
-    const int s = i < n ? s_src[i] : -1;
-    key[k] = (s >= 0 && s < n_rows_x) ? s : n_rows_x;  // out of range and pads sort last
-    pos[k] = i;
-  }
-  const int bits = 32 - __clz(n_rows_x);
-  for (int shift = 0; shift < bits; shift += kRadixBits) {
-    int dig[kGsItems];
-#pragma unroll
-    for (int d = 0; d < kRadixBins; ++d) s_cnt[d * kGsThreads + t] = 0;
-#pragma unroll
-    for (int k = 0; k < kGsItems; ++k) {
-      dig[k] = (key[k] >> shift) & (kRadixBins - 1);
-      ++s_cnt[dig[k] * kGsThreads + t];
-    }
-    __syncthreads();
-    // counts in (digit, thread) order; thread t scans kRadixBins of them
-    unsigned short* mine = s_cnt + t * kRadixBins;
-    int run[kRadixBins];
-    int sum = 0;
-#pragma unroll
-    for (int j = 0; j < kRadixBins; ++j) {
-      run[j] = sum;
-      sum += mine[j];
-    }
-    int total;
-    const int base = block_exclusive_scan(sum, s_warp, total);
-#pragma unroll
-    for (int j = 0; j < kRadixBins; ++j) mine[j] = (unsigned short)(base + run[j]);
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kGsItems; ++k) {
-      const int p = s_cnt[dig[k] * kGsThreads + t]++;
-      s_key[p] = key[k];
-      s_pos[p] = (short)pos[k];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kGsItems; ++k) {
-      key[k] = s_key[t * kGsItems + k];
-      pos[k] = s_pos[t * kGsItems + k];
-    }
-  }
-  // a slot for the head of each run of two or more equal src ids
-  unsigned multi = 0;
-  int heads = 0;
-#pragma unroll
-  for (int k = 0; k < kGsItems; ++k) {
-    const int i = t * kGsItems + k;
-    const int prev = i > 0 ? s_key[i - 1] : -1;
-    const int next = i + 1 < kGsTile ? s_key[i + 1] : -1;
-    const bool valid = key[k] < n_rows_x;
-    if (valid && (key[k] == prev || key[k] == next)) multi |= 1u << k;
-    heads += (valid && key[k] != prev && key[k] == next) ? 1 : 0;
-  }
-  int n_slots;
-  int seen = block_exclusive_scan(heads, s_warp, n_slots);
-#pragma unroll
-  for (int k = 0; k < kGsItems; ++k) {
-    const int i = t * kGsItems + k;
-    const bool head = (multi >> k & 1u) && (i == 0 || s_key[i - 1] != key[k]);
-    seen += head ? 1 : 0;
-    const int slot = seen - 1;
-    const bool staged = (multi >> k & 1u) && slot < capacity;
-    if (pos[k] < n) s_slot[pos[k]] = staged ? (short)slot : (short)-1;
-    if (head && staged) s_stage_src[slot] = key[k];
-  }
-  const int n_staged = n_slots < capacity ? n_slots : capacity;
-  __syncthreads();
-  const int words = f / VEC;
-  const int n_words = n_staged * words;
-  for (int q0 = t; q0 < n_words; q0 += kGsThreads * kGsUnroll) {
-    Vec<T, VEC> v[kGsUnroll];
-#pragma unroll
-    for (int u = 0; u < kGsUnroll; ++u) {
-      const int q = q0 + u * kGsThreads;
-      if (q < n_words) {
-        const int slot = q / words;
-        v[u] = *reinterpret_cast<const Vec<T, VEC>*>(x + (size_t)s_stage_src[slot] * f +
-                                                      (q - slot * words) * VEC);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kGsUnroll; ++u) {
-      const int q = q0 + u * kGsThreads;
-      if (q < n_words) {
-        const int slot = q / words;
-        *reinterpret_cast<Vec<T, VEC>*>(s_rows + slot * f + (q - slot * words) * VEC) = v[u];
-      }
-    }
-  }
-  __syncthreads();
-  return n_staged;
-}
-
 template <typename T, int VEC>
 __device__ __forceinline__ void store_row(T* __restrict__ out, int row, int n_rows, int f, int c,
                                           const float (&acc)[VEC]) {
@@ -655,17 +525,6 @@ __device__ __forceinline__ int live_frontier(const int* __restrict__ row_start, 
   return min(max(__ldg(row_start + n_rows / kBlockRows), 0), n_edges);
 }
 
-// Programmatic Dependent Launch (Hopper): the next kernel on the stream
-// may start once every CTA of this one has called launch_dependents (or
-// ended); wait_prerequisites waits for the kernel before to end and its
-// writes to be visible. Both do nothing for a kernel launched plainly.
-__device__ __forceinline__ void launch_dependents() {
-  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
-}
-__device__ __forceinline__ void wait_prerequisites() {
-  asm volatile("griddepcontrol.wait;" ::: "memory");
-}
-
 // K4's phase timeline, compiled in only with -DALAZ_K4_TIMELINE (the
 // timeline build of ops/_build.py; chip_smoke.py reads it): per tile CTA
 // the %globaltimer ns at its start, after its ids and runs are in shared
@@ -686,55 +545,49 @@ __device__ __forceinline__ unsigned long long global_ns() {
 #endif
 
 // One CTA per tile of kGsTile live edges (at least one per 8 dst blocks);
-// each also zeroes its share of the empty 128-row dst blocks. The tile finds its runs of
-// equal dst once (a block scan of dst[i] != dst[i-1]). In each column
-// pass (VEC columns a lane, LG lanes a group) every group walks its slice
-// of the tile run by run, kGsUnroll rows at a time, and writes the rows
-// that start and end inside the slice; rows cut by a slice end go to
-// shared memory, where the group holding a row's first edge in the tile
-// adds them up in slice order. A row cut by the tile's end leaves its
-// partial in carry[tile][1] (it continues past the tile), one cut only
-// by the tile's start in carry[tile][0]; the carry kernel finishes those.
-template <typename T, int VEC, bool STAGE>
+// each also zeroes its share of the empty 128-row dst blocks. The tile
+// finds its runs of equal dst once (a block scan of dst[i] != dst[i-1]).
+// In each column pass (VEC columns a lane, LG lanes a group) every group
+// walks its slice of the tile run by run, kGsUnroll rows at a time, and
+// writes the rows that start and end inside the slice; rows cut by a
+// slice end go to shared memory, where the group holding a row's first
+// edge in the tile adds them up in slice order. A row cut by the tile's
+// end leaves its partial in carry[tile][1] (it continues past the tile),
+// one cut only by the tile's start in carry[tile][0]; the carry kernel
+// finishes those.
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kGsThreads, kGsMinBlocks)
 gather_scatter_tile_kernel(const T* __restrict__ x, const int* __restrict__ src,
                            const int* __restrict__ dst, const T* __restrict__ w,
                            const int* __restrict__ row_start, T* __restrict__ out,
                            float* __restrict__ carry, int n_rows, int n_rows_x, int f,
-                           int n_edges, int lanes_log2, int stage_rows) {
+                           int n_edges, int lanes_log2) {
   using W = decltype(to_smem(T{}));
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_warp[kGsThreads / 32];
 #ifdef ALAZ_K4_TIMELINE
   const unsigned long long start_ns = global_ns();
 #endif
+  const int frontier = live_frontier(row_start, n_rows, n_edges);
   const int tile = blockIdx.x;
   const int t0 = tile * kGsTile;
-
-  const GsLayout lay(VEC, STAGE ? stage_rows : 0, f * (int)sizeof(T));
-  int* s_dst = reinterpret_cast<int*>(smem) + 1;  // s_dst[-1 .. n]
-  const T** s_addr = reinterpret_cast<const T**>(smem + lay.addr);
-  W* s_w = reinterpret_cast<W*>(smem + lay.w);
-  short* s_run = reinterpret_cast<short*>(smem + lay.runs);  // run starts, then n
-  short* s_slot = reinterpret_cast<short*>(smem + lay.slot);
-  int* s_src = reinterpret_cast<int*>(smem + lay.scratch);
-  float* s_part = reinterpret_cast<float*>(smem + lay.scratch);
-  T* s_zero = reinterpret_cast<T*>(smem + lay.zero);
-  T* s_rows = reinterpret_cast<T*>(smem + lay.rows);
-  const W one = to_smem(from_f32<T>(1.0f));
-
-  // the ids do not depend on the row starts: load them while the kernel
-  // that computes those (COO) may still run
-  if (t0 < n_edges)
-    load_tile_ids(s_dst, s_src, s_w, dst + t0, src + t0, w ? w + t0 : nullptr,
-                  min(kGsTile, n_edges - t0), one);
-  wait_prerequisites();
-  const int frontier = live_frontier(row_start, n_rows, n_edges);
   if (t0 >= frontier) {
     zero_empty_blocks<T, VEC>(row_start, out, n_rows / kBlockRows, f, n_edges);
     return;
   }
   const int n = min(kGsTile, frontier - t0);
+
+  const GsLayout lay(VEC, f * (int)sizeof(T));
+  int* s_dst = reinterpret_cast<int*>(smem) + 1;  // s_dst[-1 .. n]
+  const T** s_addr = reinterpret_cast<const T**>(smem + lay.addr);
+  W* s_w = reinterpret_cast<W*>(smem + lay.w);
+  short* s_run = reinterpret_cast<short*>(smem + lay.runs);  // run starts, then n
+  int* s_src = reinterpret_cast<int*>(smem + lay.scratch);
+  float* s_part = reinterpret_cast<float*>(smem + lay.scratch);
+  T* s_zero = reinterpret_cast<T*>(smem + lay.zero);
+  const W one = to_smem(from_f32<T>(1.0f));
+
+  load_tile_ids(s_dst, s_src, s_w, dst + t0, src + t0, w ? w + t0 : nullptr, n, one);
   for (int j = threadIdx.x; j < f; j += kGsThreads) s_zero[j] = from_f32<T>(0.0f);
   if (threadIdx.x == 0) {
     s_dst[-1] = t0 > 0 ? __ldg(dst + t0 - 1) : kNoRow;
@@ -757,16 +610,12 @@ gather_scatter_tile_kernel(const T* __restrict__ x, const int* __restrict__ src,
     }
     if (threadIdx.x == 0) s_run[n_runs] = (short)n;
   }
-  if (STAGE)
-    stage_tile_rows<T, VEC>(x, s_src, s_slot, smem + lay.scratch + 4 * kGsTile, s_rows, s_warp, n,
-                            n_rows_x, f, stage_rows);
-  // each edge's row: staged, else x's, else (src out of range) the zero
-  // row at weight one, which adds +0.0 and so leaves every sum as it is
+  // each edge's row: x's, or (src out of range) the zero row at weight
+  // one, which adds +0.0 and so leaves every sum as it is
   for (int i = threadIdx.x; i < n; i += kGsThreads) {
     const int s = s_src[i];
-    const int sl = STAGE ? s_slot[i] : -1;
     const bool valid = s >= 0 && s < n_rows_x;
-    s_addr[i] = sl >= 0 ? s_rows + sl * f : valid ? x + (size_t)s * f : s_zero;
+    s_addr[i] = valid ? x + (size_t)s * f : s_zero;
     if (!valid) s_w[i] = one;
   }
   __syncthreads();
@@ -907,7 +756,6 @@ __device__ __forceinline__ int floor_block(int d) {
 __global__ void __launch_bounds__(256)
 block_starts_kernel(const int* __restrict__ dst, int* __restrict__ row_start, int n_edges,
                     int n_blocks) {
-  launch_dependents();  // the tile kernel may start loading its ids
   const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
   // the blocks before the first edge's and after the last edge's, by all
   // threads together
@@ -971,35 +819,6 @@ gather_scatter_carry_kernel(const int* __restrict__ dst, const int* __restrict__
   }
 }
 
-// the most staging rows a tile takes while two tiles fit an SM: what
-// kGsStageBudget holds past the fixed layout, at most one per pair of
-// edges; 0 (stream only) when that is fewer than kGsStageMin
-inline int default_stage_rows(int vec, int row_bytes) {
-  const int fixed = GsLayout(vec, 1, row_bytes).rows;
-  int rows = (kGsStageBudget - fixed) / row_bytes;
-  if (rows > kGsTile / 2) rows = kGsTile / 2;
-  return rows < kGsStageMin ? 0 : rows;
-}
-
-// Launch on the stream; overlap: the kernel may start before the one
-// ahead of it on the stream ends (Programmatic Dependent Launch) and
-// waits for it in cudaGridDependencySynchronize before reading its output.
-template <typename... Params, typename... Args>
-cudaError_t launch(void (*kernel)(Params...), unsigned grid, unsigned block, int smem,
-                   cudaStream_t stream, bool overlap, Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(block);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = overlap ? 1 : 0;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, args...);
-}
-
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, int bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -1010,20 +829,14 @@ template <typename T, int VEC>
 cudaError_t launch_gather_scatter_vec(const T* x, const int* src, const int* dst, const T* w,
                                       int* row_start, bool find_starts, T* out, float* carry,
                                       int n_rows, int n_rows_x, int f, int n_edges,
-                                      int stage_rows, cudaStream_t stream) {
+                                      cudaStream_t stream) {
   const int n_tiles = (n_edges + kGsTile - 1) / kGsTile;
   const int n_blocks = n_rows / kBlockRows;
   const int chunks = (f + VEC - 1) / VEC;
   int lanes_log2 = 0;
   while ((1 << lanes_log2) < chunks && lanes_log2 < 5) ++lanes_log2;
-  const int row_bytes = f * (int)sizeof(T);
-  if (stage_rows < 0) stage_rows = default_stage_rows(VEC, row_bytes);
-  if (stage_rows > kGsTile / 2) stage_rows = kGsTile / 2;
-  if (n_rows_x <= 0) stage_rows = 0;
-  if ((long long)stage_rows * row_bytes > kMaxSmem) return cudaErrorInvalidValue;
-  const GsLayout lay(VEC, stage_rows, row_bytes);
+  const GsLayout lay(VEC, f * (int)sizeof(T));
   if (lay.total > kMaxSmem) return cudaErrorInvalidValue;
-  const unsigned grid = (unsigned)max(n_tiles, (n_blocks + 7) / 8);
   cudaError_t err;
   if (find_starts) {
     const long long ctas = ((long long)n_edges + 256 * kStartsEdges - 1) / (256 * kStartsEdges);
@@ -1031,22 +844,12 @@ cudaError_t launch_gather_scatter_vec(const T* x, const int* src, const int* dst
                                                                             n_edges, n_blocks);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  // overlapping the tile kernel with the one before it is safe only when
-  // that is the starts kernel: the ids it reads early may come from any
-  // earlier work
-  if (stage_rows > 0) {
-    auto kernel = gather_scatter_tile_kernel<T, VEC, true>;
-    if ((err = allow_smem(kernel, lay.total)) != cudaSuccess) return err;
-    err = launch(kernel, grid, kGsThreads, lay.total, stream, find_starts, x, src, dst, w,
-                 (const int*)row_start, out, carry, n_rows, n_rows_x, f, n_edges, lanes_log2,
-                 stage_rows);
-  } else {
-    auto kernel = gather_scatter_tile_kernel<T, VEC, false>;
-    if ((err = allow_smem(kernel, lay.total)) != cudaSuccess) return err;
-    err = launch(kernel, grid, kGsThreads, lay.total, stream, find_starts, x, src, dst, w,
-                 (const int*)row_start, out, carry, n_rows, n_rows_x, f, n_edges, lanes_log2, 0);
-  }
-  if (err != cudaSuccess || n_tiles == 0) return err;
+  auto kernel = gather_scatter_tile_kernel<T, VEC>;
+  if ((err = allow_smem(kernel, lay.total)) != cudaSuccess) return err;
+  const unsigned grid = (unsigned)max(n_tiles, (n_blocks + 7) / 8);
+  kernel<<<grid, kGsThreads, lay.total, stream>>>(x, src, dst, w, row_start, out, carry, n_rows,
+                                                  n_rows_x, f, n_edges, lanes_log2);
+  if ((err = cudaGetLastError()) != cudaSuccess || n_tiles == 0) return err;
   gather_scatter_carry_kernel<T><<<n_tiles, kGsCarryThreads, 0, stream>>>(dst, row_start, carry,
                                                                           out, n_rows, f, n_edges);
   return cudaGetLastError();
@@ -1056,20 +859,20 @@ template <typename T>
 cudaError_t launch_gather_scatter(const void* x, const int* src, const int* dst, const void* w,
                                   int* row_start, bool find_starts, void* out, float* carry,
                                   int n_rows, int n_rows_x, int f, int n_edges, int vec,
-                                  int stage_rows, cudaStream_t stream) {
+                                  cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
   const T* wt = static_cast<const T*>(w);
   T* o = static_cast<T*>(out);
   if (vec * (int)sizeof(T) == 16)
     return launch_gather_scatter_vec<T, 16 / sizeof(T)>(xt, src, dst, wt, row_start, find_starts,
                                                          o, carry, n_rows, n_rows_x, f, n_edges,
-                                                         stage_rows, stream);
+                                                         stream);
   if (vec == 4 && sizeof(T) == 2)
     return launch_gather_scatter_vec<T, 4>(xt, src, dst, wt, row_start, find_starts, o, carry,
-                                           n_rows, n_rows_x, f, n_edges, stage_rows, stream);
+                                           n_rows, n_rows_x, f, n_edges, stream);
   if (vec == 1)
     return launch_gather_scatter_vec<T, 1>(xt, src, dst, wt, row_start, find_starts, o, carry,
-                                           n_rows, n_rows_x, f, n_edges, stage_rows, stream);
+                                           n_rows, n_rows_x, f, n_edges, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -1124,12 +927,9 @@ int alaz_gather_rows_banded(const void* v, const void* ids, void* out, int n_row
 // scratch (tile: alaz_gather_scatter_tile_edges()).
 // vec: elements a lane moves at once; 16 bytes' worth (8 bf16, 4 f32)
 // or 4 bf16 when f is a multiple and x and out are aligned to it, else 1.
-// stage_rows: src rows staged in shared memory per tile; 0 reads every
-// row from L2, -1 takes the default.
 int alaz_gather_scatter_sum(const void* x, const void* src, const void* dst, const void* w,
                             void* row_start, int find_starts, void* out, void* carry, int n_rows,
-                            int n_rows_x, int f, int n_edges, int dtype, int vec, int stage_rows,
-                            void* stream) {
+                            int n_rows_x, int f, int n_edges, int dtype, int vec, void* stream) {
   const int* sp = static_cast<const int*>(src);
   const int* dp = static_cast<const int*>(dst);
   int* rs = static_cast<int*>(row_start);
@@ -1137,22 +937,15 @@ int alaz_gather_scatter_sum(const void* x, const void* src, const void* dst, con
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
     return launch_gather_scatter<float>(x, sp, dp, w, rs, find_starts != 0, out, cy, n_rows,
-                                        n_rows_x, f, n_edges, vec, stage_rows, s);
+                                        n_rows_x, f, n_edges, vec, s);
   if (dtype == kBF16)
     return launch_gather_scatter<__nv_bfloat16>(x, sp, dp, w, rs, find_starts != 0, out, cy,
-                                                n_rows, n_rows_x, f, n_edges, vec, stage_rows, s);
+                                                n_rows, n_rows_x, f, n_edges, vec, s);
   return cudaErrorInvalidValue;
 }
 
 // K4's live edges per tile: the carry scratch has 2 rows per tile.
 int alaz_gather_scatter_tile_edges(void) { return kGsTile; }
-
-// The most staging rows a K4 tile takes while two tiles fit an SM (what
-// stage_rows = -1 asks for).
-int alaz_gather_scatter_default_stage_rows(int dtype, int vec, int f) {
-  const int elt = dtype == kF32 ? 4 : 2;
-  return default_stage_rows(vec, f * elt);
-}
 
 #ifdef ALAZ_K4_TIMELINE
 // Copy K4's timeline of the last launch ([kTimelineCtas, 5] u64) to host.

@@ -39,10 +39,9 @@ _SIGNATURES = {
     "alaz_segment_expand_sorted": (_I, [_P, _P, _P, _I, _I, ctypes.c_longlong, _I, _P]),
     "alaz_gather_rows_banded": (_I, [_P, _P, _P, _I, _I, ctypes.c_longlong, _I, _P]),
     "alaz_gather_scatter_sum": (
-        _I, [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+        _I, [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P]
     ),
     "alaz_gather_scatter_tile_edges": (_I, []),
-    "alaz_gather_scatter_default_stage_rows": (_I, [_I, _I, _I]),
     "alaz_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -258,21 +258,13 @@ def pallas_gather_scatter_sum(
     num_nodes: int,
     edge_weight: torch.Tensor | None = None,
     block_starts: torch.Tensor | None = None,
-    *,
-    stage_rows: int | None = None,
 ) -> torch.Tensor:
     """out[d] = Σ_{e: dst[e]=d} w[e]·x[src[e]] for dst-SORTED int32
     ``edge_dst`` and any int32 ``edge_src``; the messages are never
     stored. The weight is cast to x's dtype and each product rounded to
     it before the f32 sum (the JAX package's rounding); the result is in
     x's dtype (f32 for an x of another dtype, cast back). ``block_starts``
-    are K1's row starts: COO and blocked rows agree bit for bit.
-
-    ``stage_rows`` is how many src rows each tile of the kernel copies
-    into shared memory and reads there (None or 0, the default: every row
-    read from L2; on the H100 staging measured slower, ``PERF.md``). It
-    moves only where rows are read, never the result: every value gives
-    the same bits."""
+    are K1's row starts: COO and blocked rows agree bit for bit."""
     _forward_only(x, edge_weight)
     dtype = x.dtype
     if x.dtype not in _DTYPE_CODE:
@@ -282,19 +274,17 @@ def pallas_gather_scatter_sum(
             x, edge_src, edge_dst, num_nodes, edge_weight, block_starts
         )
     else:
-        out = _gather_scatter_sum_cuda(
-            x, edge_src, edge_dst, num_nodes, edge_weight, block_starts, stage_rows
-        )
+        out = _gather_scatter_sum_cuda(x, edge_src, edge_dst, num_nodes, edge_weight, block_starts)
     return out if out.dtype == dtype else out.to(dtype)
 
 
-def _lane_vec(f: int, *tensors: torch.Tensor) -> int:
+def _lane_vec(f: int, x: torch.Tensor, out: torch.Tensor) -> int:
     """Elements a lane of K4 moves at once: 16 bytes' worth, else 4, else
-    1, as far as ``f`` and every buffer's alignment allow."""
-    elt = tensors[0].element_size()
+    1, as far as ``f`` and both buffers' alignment allow."""
+    elt = x.element_size()
     return next(
         v for v in (16 // elt, 4, 1)
-        if f % v == 0 and all(t.data_ptr() % (v * elt) == 0 for t in tensors)
+        if f % v == 0 and x.data_ptr() % (v * elt) == 0 and out.data_ptr() % (v * elt) == 0
     )
 
 
@@ -310,17 +300,7 @@ def gather_scatter_tile_edges() -> int:
     return _GS_TILE
 
 
-def gather_scatter_stage_capacity(x: torch.Tensor) -> int:
-    """The most src rows a tile of K4's kernel stages for ``x`` while two
-    tiles still fit an SM's shared memory (0: none fit)."""
-    f = x.shape[1]
-    vec = _lane_vec(f, x)
-    return _build.library().alaz_gather_scatter_default_stage_rows(_DTYPE_CODE[x.dtype], vec, f)
-
-
-def _gather_scatter_sum_cuda(
-    x, edge_src, edge_dst, num_nodes, edge_weight, block_starts, stage_rows
-):
+def _gather_scatter_sum_cuda(x, edge_src, edge_dst, num_nodes, edge_weight, block_starts):
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"pallas_gather_scatter_sum: no kernel for device {dev}")
@@ -335,14 +315,11 @@ def _gather_scatter_sum_cuda(
         _cuda_input(edge_weight, "edge_weight", dev, 1)
         if edge_weight.shape[0] != e:
             raise ValueError(f"edge_weight has {edge_weight.shape[0]} entries for {e} edges")
-        if edge_weight.dtype != x.dtype:
-            edge_weight = edge_weight.to(x.dtype)
+        edge_weight = edge_weight.to(x.dtype)
         w_ptr = edge_weight.data_ptr()
     n_x, f = x.shape
     if max(e, n_x, num_nodes, f * x.element_size()) >= 2**31:
         raise ValueError("pallas_gather_scatter_sum: dimensions must fit int32")
-    if stage_rows is not None and stage_rows < 0:
-        raise ValueError(f"stage_rows={stage_rows} must be >= 0")
     # scratch: the per-tile f32 carries [tiles, 2, f], then under the COO
     # layout the row starts the kernel computes ([num_nodes/128 + 1] int32)
     carry_words = -(-e // gather_scatter_tile_edges()) * 2 * f
@@ -361,15 +338,11 @@ def _gather_scatter_sum_cuda(
     args = (
         x.data_ptr(), edge_src.data_ptr(), edge_dst.data_ptr(), w_ptr,
         starts_ptr, int(block_starts is None), out.data_ptr(), scratch.data_ptr(),
-        num_nodes, n_x, f, e, _DTYPE_CODE[x.dtype], _lane_vec(f, x, out), stage_rows or 0,
-        _stream(dev),
+        num_nodes, n_x, f, e, _DTYPE_CODE[x.dtype], _lane_vec(f, x, out), _stream(dev),
     )
     lib = _build.library()
-    if dev.index == torch.cuda.current_device():  # launches go to the current device
+    with torch.cuda.device(dev):
         rc = lib.alaz_gather_scatter_sum(*args)
-    else:
-        with torch.cuda.device(dev):
-            rc = lib.alaz_gather_scatter_sum(*args)
     _build.check(rc, "pallas_gather_scatter_sum")
     pallas_gather_scatter_sum.launches += 1
     return out

@@ -291,10 +291,9 @@ def test_gather_scatter_tiles(dev, case, dtype):
     """K4's partition at the places it can go wrong: rows cut by a tile
     end and rows ending on one, a hub row several tiles long, a window
     whose edges sit in a few dst blocks, fewer edges than one tile. Held
-    to the plain version; two calls, COO and blocked row starts, and
-    staged and streamed src rows all give the same bits; rows without
-    edges are zeros. The plain version runs on the CPU, as above. Staging
-    is off by default; staged rows give the streamed bits."""
+    to the plain version; two calls, and COO and blocked row starts, give
+    the same bits; rows without edges are zeros. The plain version runs on
+    the CPU, as above."""
     tile = K.gather_scatter_tile_edges()
     rng = np.random.default_rng(7)
     dst, n_pad = _k4_dst(case, tile, rng)
@@ -316,26 +315,6 @@ def test_gather_scatter_tiles(dev, case, dtype):
     _assert_k1_close(got.cpu(), _k4_plain_on_cpu(x, s, d, n_pad, w))
     assert torch.equal(got, K.pallas_gather_scatter_sum(x, s, d, n_pad, w))
     assert torch.equal(got, K.pallas_gather_scatter_sum(x, s, d, n_pad, w, bs))
-    for stage_rows in (16, K.gather_scatter_stage_capacity(x)):
-        staged = K.pallas_gather_scatter_sum(x, s, d, n_pad, w, stage_rows=stage_rows)
-        assert torch.equal(got, staged)
     empty = torch.ones(n_pad, dtype=torch.bool, device=dev)
     empty[d.long()] = False
     assert float(got[empty].float().abs().max()) == 0.0
-
-
-def test_gather_scatter_staged_equals_streamed_on_uniform_ids(dev):
-    """Staging (off by default) on ids with little reuse, at capacities up
-    to the most that fits, gives the streamed bits."""
-    rng = np.random.default_rng(3)
-    n_pad, e = 4096, 20_000
-    dst = np.sort(rng.integers(0, 1000, e)).astype(np.int32)
-    d = torch.as_tensor(dst, device=dev)
-    s = torch.randint(0, n_pad, (e,), dtype=torch.int32, device=dev)
-    x = torch.randn((n_pad, 128), device=dev).bfloat16()
-    streamed = K.pallas_gather_scatter_sum(x, s, d, n_pad)
-    for stage_rows in (1, 64, K.gather_scatter_stage_capacity(x)):
-        staged = K.pallas_gather_scatter_sum(x, s, d, n_pad, stage_rows=stage_rows)
-        assert torch.equal(streamed, staged)
-    with pytest.raises(ValueError, match="stage_rows"):
-        K.pallas_gather_scatter_sum(x, s, d, n_pad, stage_rows=-2)
