@@ -96,7 +96,9 @@
 //       busy blocks by the tiles (gaps between dst values as zeros), the
 //       empty 128-row blocks by the tile CTAs after their walks.
 //     - Row starts. The COO layout's starts come from a one-pass kernel
-//       (no search) launched ahead of the tiles.
+//       (no search) launched ahead of the tiles, which overlap it while
+//       they load their ids; the carry kernel in turn takes the SMs the
+//       last tiles leave (Programmatic Dependent Launch).
 //     - Not kept: staging each tile's reused src rows in shared memory
 //       (a block sort of the tile's src ids, each row used twice or more
 //       copied in once). It halved the walk on the clustered window but
@@ -525,6 +527,17 @@ __device__ __forceinline__ int live_frontier(const int* __restrict__ row_start, 
   return min(max(__ldg(row_start + n_rows / kBlockRows), 0), n_edges);
 }
 
+// Programmatic Dependent Launch (Hopper): the next kernel on the stream
+// may start once every CTA of this one has called launch_dependents (or
+// ended); wait_prerequisites waits for the kernel before to end and its
+// writes to be visible. Both do nothing for a kernel launched plainly.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+__device__ __forceinline__ void wait_prerequisites() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
 // K4's phase timeline, compiled in only with -DALAZ_K4_TIMELINE (the
 // timeline build of ops/_build.py; chip_smoke.py reads it): per tile CTA
 // the %globaltimer ns at its start, after its ids and runs are in shared
@@ -568,14 +581,9 @@ gather_scatter_tile_kernel(const T* __restrict__ x, const int* __restrict__ src,
 #ifdef ALAZ_K4_TIMELINE
   const unsigned long long start_ns = global_ns();
 #endif
-  const int frontier = live_frontier(row_start, n_rows, n_edges);
+  launch_dependents();  // the carry kernel may take the SMs the tiles leave
   const int tile = blockIdx.x;
   const int t0 = tile * kGsTile;
-  if (t0 >= frontier) {
-    zero_empty_blocks<T, VEC>(row_start, out, n_rows / kBlockRows, f, n_edges);
-    return;
-  }
-  const int n = min(kGsTile, frontier - t0);
 
   const GsLayout lay(VEC, f * (int)sizeof(T));
   int* s_dst = reinterpret_cast<int*>(smem) + 1;  // s_dst[-1 .. n]
@@ -587,7 +595,18 @@ gather_scatter_tile_kernel(const T* __restrict__ x, const int* __restrict__ src,
   T* s_zero = reinterpret_cast<T*>(smem + lay.zero);
   const W one = to_smem(from_f32<T>(1.0f));
 
-  load_tile_ids(s_dst, s_src, s_w, dst + t0, src + t0, w ? w + t0 : nullptr, n, one);
+  // the ids do not depend on the row starts: load them while the kernel
+  // that computes those (COO) may still run
+  if (t0 < n_edges)
+    load_tile_ids(s_dst, s_src, s_w, dst + t0, src + t0, w ? w + t0 : nullptr,
+                  min(kGsTile, n_edges - t0), one);
+  wait_prerequisites();
+  const int frontier = live_frontier(row_start, n_rows, n_edges);
+  if (t0 >= frontier) {
+    zero_empty_blocks<T, VEC>(row_start, out, n_rows / kBlockRows, f, n_edges);
+    return;
+  }
+  const int n = min(kGsTile, frontier - t0);
   for (int j = threadIdx.x; j < f; j += kGsThreads) s_zero[j] = from_f32<T>(0.0f);
   if (threadIdx.x == 0) {
     s_dst[-1] = t0 > 0 ? __ldg(dst + t0 - 1) : kNoRow;
@@ -756,6 +775,7 @@ __device__ __forceinline__ int floor_block(int d) {
 __global__ void __launch_bounds__(256)
 block_starts_kernel(const int* __restrict__ dst, int* __restrict__ row_start, int n_edges,
                     int n_blocks) {
+  launch_dependents();  // the tile kernel may start loading its ids
   const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
   // the blocks before the first edge's and after the last edge's, by all
   // threads together
@@ -798,6 +818,7 @@ __global__ void __launch_bounds__(kGsCarryThreads)
 gather_scatter_carry_kernel(const int* __restrict__ dst, const int* __restrict__ row_start,
                             const float* __restrict__ carry, T* __restrict__ out, int n_rows,
                             int f, int n_edges) {
+  wait_prerequisites();  // the tile kernel's carries
   const int frontier = live_frontier(row_start, n_rows, n_edges);
   const int tile = blockIdx.x;
   const int t0 = tile * kGsTile;
@@ -817,6 +838,25 @@ gather_scatter_carry_kernel(const int* __restrict__ dst, const int* __restrict__
     }
     out[(size_t)row * f + c] = from_f32<T>(acc);
   }
+}
+
+// Launch on the stream; overlap: the kernel may start before the one
+// ahead of it on the stream ends (Programmatic Dependent Launch) and
+// waits for it in cudaGridDependencySynchronize before reading its output.
+template <typename... Params, typename... Args>
+cudaError_t launch(void (*kernel)(Params...), unsigned grid, unsigned block, int smem,
+                   cudaStream_t stream, bool overlap, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(block);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = overlap ? 1 : 0;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 template <typename Kernel>
@@ -844,15 +884,17 @@ cudaError_t launch_gather_scatter_vec(const T* x, const int* src, const int* dst
                                                                             n_edges, n_blocks);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
+  // overlapping the tile kernel with the one before it is safe only when
+  // that is the starts kernel: the ids it reads early may come from any
+  // earlier work
   auto kernel = gather_scatter_tile_kernel<T, VEC>;
   if ((err = allow_smem(kernel, lay.total)) != cudaSuccess) return err;
   const unsigned grid = (unsigned)max(n_tiles, (n_blocks + 7) / 8);
-  kernel<<<grid, kGsThreads, lay.total, stream>>>(x, src, dst, w, row_start, out, carry, n_rows,
-                                                  n_rows_x, f, n_edges, lanes_log2);
-  if ((err = cudaGetLastError()) != cudaSuccess || n_tiles == 0) return err;
-  gather_scatter_carry_kernel<T><<<n_tiles, kGsCarryThreads, 0, stream>>>(dst, row_start, carry,
-                                                                          out, n_rows, f, n_edges);
-  return cudaGetLastError();
+  err = launch(kernel, grid, kGsThreads, lay.total, stream, find_starts, x, src, dst, w,
+               (const int*)row_start, out, carry, n_rows, n_rows_x, f, n_edges, lanes_log2);
+  if (err != cudaSuccess || n_tiles == 0) return err;
+  return launch(gather_scatter_carry_kernel<T>, n_tiles, kGsCarryThreads, 0, stream, true, dst,
+                (const int*)row_start, (const float*)carry, out, n_rows, f, n_edges);
 }
 
 template <typename T>
