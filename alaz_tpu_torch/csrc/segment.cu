@@ -101,13 +101,14 @@
 //       last tiles leave (Programmatic Dependent Launch).
 //     - Not kept: staging each tile's reused src rows in shared memory
 //       (a block sort of the tile's src ids, each row used twice or more
-//       copied in once). It halved the walk on the clustered window but
-//       made K4 slower on both windows: the sort lengthened every tile,
-//       and the staged rows' shared memory halved the CTAs an SM
-//       (PERF.md, PR 3).
-//     What sets the pace on the H100 (PERF.md): the walks' L2 reads, at
-//     ~8 TB/s while the tiles walk, the tiles' load and combine phases
-//     that the two waves run side by side, and the two small kernels.
+//       copied in once; the clustered window reads each src row 3.3 times
+//       within a tile). It made K4 slower on both windows: the sort
+//       lengthened every tile, and the staged rows' shared memory halved
+//       the CTAs an SM (PERF.md, PR 3).
+//     What sets the pace on the H100 (PERF.md): the tiles' phases (ids
+//     into shared memory, the walk's short chains of L2 round trips, the
+//     combine) in two waves, and the row-starts kernel; the L2 row reads
+//     themselves cost a small part, as every edge reading one row shows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -184,7 +184,7 @@ def test_gather_scatter_sum_matches_plain(dev, dtype, f, weighted, hub):
     """Odd widths, E off the 128 grid, empty dst blocks (the upper half of
     the rows), and a hub row of 10,000 edges. The plain version runs on
     the CPU: on the card its ``index_add_`` adds with atomics in a varying
-    order, which alone moves the f32 hub row by up to ~1.4e-2, most of the
+    order, which alone can move the f32 hub row by most of the
     tolerance."""
     n_pad, n_x = 512, 300
     e = 10_000 + 1000 if hub else 3000 - 37
