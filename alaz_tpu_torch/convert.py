@@ -1,10 +1,13 @@
 """Carry params and graphs across from numpy.
 
-A JAX param tree (GraphSAGE or GAT), with numpy leaves, becomes the
-model module's state dict: the tree's dict keys and list indices joined by
-``.`` are the module's parameter names, and every leaf keeps its shape.
-Dense weights are ``[in, out]`` in both packages (``models/common.py
-Dense`` computes ``x @ w``), so nothing is transposed.
+A JAX param tree of any of the four families (GraphSAGE, GAT, the
+experts' stacked ``expert_w [T, H, H]`` and ``expert_b [T, H]``, TGN's
+``encoder.*``, ``mem_in`` and ``gru_r/z/n``), with numpy leaves, becomes
+the model module's state dict: the tree's dict keys and list indices
+joined by ``.`` are the module's parameter names, and every leaf keeps
+its shape and value (TGN's update-gate bias of -2 included). Dense
+weights are ``[in, out]`` in both packages (``models/common.py Dense``
+computes ``x @ w``), so nothing is transposed.
 """
 
 from __future__ import annotations

@@ -2,10 +2,11 @@
 
 ``init(key, cfg, device=None) -> module`` and ``apply(params, graph, cfg)
 -> {"node_h", "edge_logits", "node_logits", ...}``, as in the JAX
-package. ``graphsage`` and ``gat`` are ported so far.
+package, for all four families: ``graphsage``, ``gat``, ``experts`` and
+``tgn`` (whose streaming entry point is ``tgn.step``).
 """
 
-from alaz_tpu_torch.models import gat, graphsage
+from alaz_tpu_torch.models import experts, gat, graphsage, tgn
 from alaz_tpu_torch.models.registry import get_model, init_params
 
-__all__ = ["gat", "graphsage", "get_model", "init_params"]
+__all__ = ["experts", "gat", "graphsage", "tgn", "get_model", "init_params"]

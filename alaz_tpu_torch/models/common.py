@@ -14,6 +14,7 @@ from typing import Iterable
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from alaz_tpu_torch.config import ModelConfig
@@ -71,6 +72,15 @@ def mlp(params: Iterable[Dense], x: torch.Tensor) -> torch.Tensor:
         if i + 1 < len(layers):
             x = gelu(x)
     return x
+
+
+def remat_layer(layer_fn, layer, h):
+    """``layer_fn(layer, h)`` rematerialized (``cfg.remat``): its
+    activations are dropped after the forward and recomputed in the
+    backward, trading compute for activation memory. The gradients equal
+    those without remat when the recompute rounds as the forward did (the
+    models' f32 residual carry)."""
+    return torch.utils.checkpoint.checkpoint(layer_fn, layer, h, use_reentrant=False)
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:

@@ -30,6 +30,7 @@ from alaz_tpu_torch.models.common import (
     layernorm,
     maybe_znorm_graph,
     mlp,
+    remat_layer,
 )
 from alaz_tpu_torch.ops.segment import (
     ATTENTION_LOGIT_CLAMP,
@@ -111,9 +112,8 @@ def apply(params: GAT, graph: dict, cfg: ModelConfig) -> dict:
     block_starts = graph_block_starts(graph, cfg)
     live = edge_mask.float().sum()
 
-    sats = []
-    for layer in params.layers:
-        hc = h.to(dtype)
+    def layer_fn(layer, h32):
+        hc = h32.to(dtype)
         # logit = a·[q_dst, kv_src, e_feat], re-associated into per-node and
         # per-edge partial dot products: the dst-side partial rides the
         # sorted expand, only the src side stays a row gather
@@ -136,7 +136,7 @@ def apply(params: GAT, graph: dict, cfg: ModelConfig) -> dict:
         # clamp, which the fixed clamp (in place of a per-segment max)
         # would otherwise hide
         hit = (logits.abs() >= ATTENTION_LOGIT_CLAMP) & edge_mask[:, None]
-        sats.append(hit.float().sum() / torch.clamp(live * nh, min=1.0))
+        sat = hit.float().sum() / torch.clamp(live * nh, min=1.0)
         logits = torch.clamp(logits, -ATTENTION_LOGIT_CLAMP, ATTENTION_LOGIT_CLAMP)
         w = torch.where(edge_mask[:, None], torch.exp(logits), 0.0)  # [E, nh] f32
         msgs = ((kv_src + e_feat) * w[:, :, None].to(dtype)).reshape(-1, nh * hd)
@@ -145,7 +145,8 @@ def apply(params: GAT, graph: dict, cfg: ModelConfig) -> dict:
         agg_all = segment_sum_accurate(fused, dst, n, cfg.use_pallas, block_starts=block_starts)
         num = agg_all[:, : nh * hd].reshape(n, nh, hd)
         denom = agg_all[:, nh * hd :]  # [N, nh]
-        # double where: rows with no live in-edge have denom 0
+        # double where: rows with no live in-edge have denom 0; the inner
+        # where keeps the division, and so its backward, off that 0
         nonempty = denom > 0.0
         agg = torch.where(
             nonempty[:, :, None],
@@ -153,7 +154,12 @@ def apply(params: GAT, graph: dict, cfg: ModelConfig) -> dict:
             0.0,
         ).reshape(n, nh * hd)
         h_new = dense(layer.out, agg.to(dtype))
-        h = (h + gelu(layernorm(layer.ln, h_new.float()))) * node_mask
+        return (h32 + gelu(layernorm(layer.ln, h_new.float()))) * node_mask, sat
+
+    sats = []
+    for layer in params.layers:
+        h, sat = remat_layer(layer_fn, layer, h) if cfg.remat else layer_fn(layer, h)
+        sats.append(sat)
     h = h.to(dtype)
 
     edge_logits = edge_head(params.edge_head, h, graph, dtype, cfg.use_pallas, cfg.src_gather)

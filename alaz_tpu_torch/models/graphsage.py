@@ -8,7 +8,9 @@ Mean-aggregator GraphSAGE with edge-feature-conditioned messages:
 
 plus per-edge and per-node anomaly heads. Matmuls run in the compute
 dtype (bf16 by default), the residual stream and the scatter's
-accumulation in f32 -- the JAX package's ``models/graphsage.py``.
+accumulation in f32 -- the JAX package's ``models/graphsage.py``. With
+``cfg.remat`` each layer is recomputed in the backward instead of keeping
+its activations (``torch.utils.checkpoint``).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from alaz_tpu_torch.models.common import (
     layernorm,
     maybe_znorm_graph,
     mlp,
+    remat_layer,
     scatter_messages,
 )
 from alaz_tpu_torch.ops.segment import gather_src
@@ -90,15 +93,17 @@ def apply(params: GraphSAGE, graph: dict, cfg: ModelConfig, h_bias=None) -> dict
     h = dense(params.embed, graph["node_feats"].to(dtype))
     if h_bias is not None:
         h = h + h_bias.to(dtype)
-    # the residual stream rides in f32; matmuls stay in the compute dtype
+    # the residual stream rides in f32; matmuls stay in the compute dtype.
+    # An f32 carry also keeps remat exact: the recomputed layer rounds as
+    # the saved one did
     h = h.float() * node_mask
 
     ef = graph["edge_feats"].to(dtype)
     deg = graph_degree(graph, torch.float32, n)
     block_starts = graph_block_starts(graph, cfg)
 
-    for layer in params.layers:
-        hc = h.to(dtype)
+    def layer_fn(layer, h32):
+        hc = h32.to(dtype)
         # dense-before-gather: (h @ W)[src] == h[src] @ W over N rows, not E
         msgs = gather_src(dense(layer["msg"], hc), graph["edge_src"], n, cfg.src_gather) + dense(
             layer["edge_proj"], ef
@@ -110,7 +115,10 @@ def apply(params: GraphSAGE, graph: dict, cfg: ModelConfig, h_bias=None) -> dict
         agg = agg / torch.clamp(deg, min=1.0)[:, None]  # bf16 / f32 → f32
         h_new = dense(layer["self"], hc) + dense(layer["neigh"], agg.to(dtype))
         h_new = gelu(layernorm(layer["ln"], h_new.float()))
-        h = (h + h_new) * node_mask
+        return (h32 + h_new) * node_mask
+
+    for layer in params.layers:
+        h = remat_layer(layer_fn, layer, h) if cfg.remat else layer_fn(layer, h)
     h = h.to(dtype)
 
     edge_logits = edge_head(params.edge_head, h, graph, dtype, cfg.use_pallas, cfg.src_gather)

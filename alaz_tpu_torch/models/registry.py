@@ -2,15 +2,9 @@
 
 from __future__ import annotations
 
-from alaz_tpu_torch.models import gat, graphsage
+from alaz_tpu_torch.models import experts, gat, graphsage, tgn
 
 REGISTERED_MODELS = ("graphsage", "gat", "tgn", "experts")
-# models of the JAX package this package does not have yet, each with
-# its place in ROADMAP.md's queue of slices
-_NOT_PORTED = {
-    "experts": "the experts slice",
-    "tgn": "the TGN slice",
-}
 
 
 def get_model(name: str):
@@ -18,10 +12,10 @@ def get_model(name: str):
         return graphsage.init, graphsage.apply
     if name == "gat":
         return gat.init, gat.apply
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet: ROADMAP.md queues it as {_NOT_PORTED[name]}"
-        )
+    if name == "tgn":
+        return tgn.init, tgn.apply
+    if name == "experts":
+        return experts.init, experts.apply
     raise ValueError(f"unknown model {name!r} ({'|'.join(REGISTERED_MODELS)})")
 
 

@@ -4,7 +4,9 @@ Each wrapper launches its CUDA kernel for tensors on a CUDA device and
 uses its plain PyTorch version for tensors on the CPU; nothing else
 selects between them, and a CUDA tensor the kernel cannot take raises.
 Each wrapper counts its kernel launches in ``<wrapper>.launches``, so a
-run can show that the scoring path went through the kernels.
+run can show that the scoring path went through the kernels. A count
+counts the kernel that runs, whichever pass asked for it: K1's backward
+is a K2 launch, and K2's a K1 launch.
 
 - ``scatter_sum_sorted`` (K1) replaces the TPU kernel
   ``alaz_tpu/ops/pallas_segment.py scatter_sum_sorted``.
@@ -15,7 +17,25 @@ run can show that the scoring path went through the kernels.
 - ``pallas_gather_scatter_sum`` (K4) replaces the TPU kernel
   ``alaz_tpu/ops/pallas_segment.py pallas_gather_scatter_sum``.
 
-All are forward only: their backward passes come with training.
+Each wrapper is a ``torch.autograd.Function`` when a gradient is asked
+for (grad mode on and an input that requires grad; otherwise it runs the
+same forward without the autograd node), whose backward computes what the
+JAX package's ``custom_vjp`` computes, on the kernels too:
+
+- K1's backward is ``g[edge_dst]`` in the messages' dtype: K2.
+- K2's backward is the sorted sum of ``g`` over ``edge_dst``: K1.
+- K3's backward, ``dv[i] = Σ_{ids[e]=i} g[e]`` summed in f32 and rounded
+  once, is K4 over the stable sort of ``ids``, unweighted: each product
+  ``g·1`` is exact, and the sum has a fixed order (no atomics), so two
+  runs give the same bits.
+- K4's backward: ``dx`` is K4 with the roles of src and dst swapped over
+  the stable sort of ``src``, in f32 (the JAX package forms those
+  products in f32); ``dw[e] = Σ_f x[src[e], f]·g[dst[e], f]`` is a plain
+  f32 row dot, as the JAX package leaves it to XLA.
+
+The backward passes take cotangents in any layout (an expanded or
+transposed one is made contiguous first) and run on the same device as
+the forward: the kernels on the card, the plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -28,14 +48,6 @@ from alaz_tpu_torch.graph.snapshot import EDGE_BLOCK_ROWS
 from alaz_tpu_torch.ops import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}  # csrc/segment.cu enum
-
-
-def _forward_only(*tensors: torch.Tensor | None) -> None:
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "the segment kernels are forward only; their backward comes "
-            "with training (ROADMAP.md)"
-        )
 
 
 def _cuda_input(t: torch.Tensor, name: str, device: torch.device, ndim: int, dtype=None) -> None:
@@ -51,6 +63,28 @@ def _cuda_input(t: torch.Tensor, name: str, device: torch.device, ndim: int, dty
 
 def _stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _rows_of_blocks(n: int) -> int:
+    """``n`` rounded up to whole 128-row dst blocks (at least one): the
+    row count K4 writes, for a backward scatter into ``n`` rows."""
+    return max(1, -(-n // EDGE_BLOCK_ROWS)) * EDGE_BLOCK_ROWS
+
+
+def _call(function, run, *args):
+    """``function.apply(*args)`` when autograd needs the pass (grad mode on
+    and a tensor argument that requires grad), else ``run(*args)``: the
+    same forward without an autograd node, whose host work would otherwise
+    pace back-to-back launches of a short kernel (K4's) on the scoring
+    paths."""
+    if torch.is_grad_enabled() and any(isinstance(a, torch.Tensor) and a.requires_grad for a in args):
+        return function.apply(*args)
+    return run(*args)
+
+
+def _kernel_dtype(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in a dtype the summing kernels take: as it is, or f32."""
+    return t if t.dtype in _DTYPE_CODE else t.float()
 
 
 # ---------------------------------------------------------------------------
@@ -90,16 +124,40 @@ def scatter_sum_sorted(
     sum itself (``segment_sum_accurate``). ``block_starts`` (the blocked
     layout's host extents) replaces the per-call search for each 128-row
     dst block's edge run, and excludes the pad edges past its frontier."""
-    _forward_only(msgs)
     dtype = msgs.dtype if out_dtype is None else out_dtype
-    if msgs.dtype not in _DTYPE_CODE:
-        msgs = msgs.float()
+    msgs = _kernel_dtype(msgs)
     kout = dtype if dtype in (msgs.dtype, torch.float32) else torch.float32
-    if msgs.device.type == "cpu":
-        out = scatter_sum_sorted_plain(msgs, edge_dst, num_nodes, kout, block_starts)
-    else:
-        out = _scatter_sum_sorted_cuda(msgs, edge_dst, num_nodes, kout, block_starts)
+    out = _call(_ScatterSumSorted, _run_k1, msgs, edge_dst, num_nodes, kout, block_starts)
     return out if kout == dtype else out.to(dtype)
+
+
+def _run_k1(msgs, edge_dst, num_nodes, out_dtype, block_starts=None):
+    """K1 where its tensors lie: the plain version on the CPU, the kernel
+    on the card."""
+    if msgs.device.type == "cpu":
+        return scatter_sum_sorted_plain(msgs, edge_dst, num_nodes, out_dtype, block_starts)
+    return _scatter_sum_sorted_cuda(msgs, edge_dst, num_nodes, out_dtype, block_starts)
+
+
+class _ScatterSumSorted(torch.autograd.Function):
+    """K1 forward; backward ``g[edge_dst]`` in the messages' dtype through
+    K2. ``g`` ([N, F]) is cast before the gather, which is exact, so the
+    cast touches N rows instead of E. The row starts get no cotangent; pad
+    slots past the blocked frontier get ``g`` of their dst row, as in the
+    JAX package (the models mask those messages before the sum)."""
+
+    @staticmethod
+    def forward(ctx, msgs, edge_dst, num_nodes, out_dtype, block_starts):
+        ctx.save_for_backward(edge_dst)
+        ctx.num_nodes = num_nodes
+        ctx.msgs_dtype = msgs.dtype
+        return _run_k1(msgs, edge_dst, num_nodes, out_dtype, block_starts)
+
+    @staticmethod
+    def backward(ctx, g):
+        (edge_dst,) = ctx.saved_tensors
+        d_msgs = _run_k2(g.to(ctx.msgs_dtype).contiguous(), edge_dst, ctx.num_nodes)
+        return d_msgs, None, None, None, None
 
 
 def _row_starts(edge_dst, num_nodes, block_starts):
@@ -162,7 +220,13 @@ def segment_expand_sorted_plain(v: torch.Tensor, edge_dst: torch.Tensor) -> torc
 def segment_expand_sorted(v: torch.Tensor, edge_dst: torch.Tensor, num_nodes: int) -> torch.Tensor:
     """out[e] = v[dst[e]] for dst-sorted int32 ``edge_dst``; exact in any
     dtype. ``num_nodes`` is v's row count (the backward's scatter size)."""
-    _forward_only(v)
+    return _call(_SegmentExpandSorted, _run_k2, v, edge_dst, num_nodes)
+
+
+segment_expand_sorted.launches = 0
+
+
+def _run_k2(v, edge_dst, num_nodes):
     if v.device.type == "cpu":
         return segment_expand_sorted_plain(v, edge_dst)
     out, launched = _row_gather_cuda("segment_expand_sorted", v, edge_dst, num_nodes)
@@ -170,7 +234,22 @@ def segment_expand_sorted(v: torch.Tensor, edge_dst: torch.Tensor, num_nodes: in
     return out
 
 
-segment_expand_sorted.launches = 0
+class _SegmentExpandSorted(torch.autograd.Function):
+    """K2 forward; backward ``dv[d] = Σ_{dst[e]=d} g[e]`` through K1, f32
+    accumulation, one rounding to g's dtype."""
+
+    @staticmethod
+    def forward(ctx, v, edge_dst, num_nodes):
+        ctx.save_for_backward(edge_dst)
+        ctx.num_nodes = num_nodes
+        return _run_k2(v, edge_dst, num_nodes)
+
+    @staticmethod
+    def backward(ctx, g):
+        (edge_dst,) = ctx.saved_tensors
+        gk = _kernel_dtype(g).contiguous()
+        dv = _run_k1(gk, edge_dst, ctx.num_nodes, gk.dtype)
+        return dv.to(g.dtype), None, None
 
 
 def _row_gather_cuda(name: str, v, ids, num_nodes):
@@ -218,7 +297,13 @@ def gather_rows_banded(v: torch.Tensor, ids: torch.Tensor, num_nodes: int) -> to
     """out[e] = v[ids[e]] for UNSORTED int32 ``ids`` (the src side of a
     dst-sorted window); exact in any dtype, whatever the ids' locality.
     ``num_nodes`` is v's row count (the backward's scatter size)."""
-    _forward_only(v)
+    return _call(_GatherRowsBanded, _run_k3, v, ids, num_nodes)
+
+
+gather_rows_banded.launches = 0
+
+
+def _run_k3(v, ids, num_nodes):
     if v.device.type == "cpu":
         return gather_rows_banded_plain(v, ids)
     out, launched = _row_gather_cuda("gather_rows_banded", v, ids, num_nodes)
@@ -226,7 +311,31 @@ def gather_rows_banded(v: torch.Tensor, ids: torch.Tensor, num_nodes: int) -> to
     return out
 
 
-gather_rows_banded.launches = 0
+def unsorted_segment_sum(g: torch.Tensor, ids: torch.Tensor, num_nodes: int) -> torch.Tensor:
+    """``dv[i] = Σ_{ids[e]=i} g[e]`` for unsorted int32 ``ids``: K3's
+    backward. Summed in f32 and rounded once to g's dtype (f32 for a dtype
+    K4 does not take, cast back), by K4 over the ids' stable sort with no
+    weight: every product is exact and the order of the sum is fixed, so
+    the result is deterministic. Ids outside [0, num_nodes) add nothing."""
+    gk = _kernel_dtype(g).contiguous()
+    perm = torch.argsort(ids, stable=True).to(torch.int32)
+    dv = _run_k4(gk, perm, ids[perm], _rows_of_blocks(num_nodes))
+    return dv[:num_nodes].to(g.dtype)
+
+
+class _GatherRowsBanded(torch.autograd.Function):
+    """K3 forward; backward ``unsorted_segment_sum`` (K4)."""
+
+    @staticmethod
+    def forward(ctx, v, ids, num_nodes):
+        ctx.save_for_backward(ids)
+        ctx.num_nodes = num_nodes
+        return _run_k3(v, ids, num_nodes)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        return unsorted_segment_sum(g, ids, ctx.num_nodes), None, None
 
 
 # ---------------------------------------------------------------------------
@@ -265,17 +374,59 @@ def pallas_gather_scatter_sum(
     it before the f32 sum (the JAX package's rounding); the result is in
     x's dtype (f32 for an x of another dtype, cast back). ``block_starts``
     are K1's row starts: COO and blocked rows agree bit for bit."""
-    _forward_only(x, edge_weight)
     dtype = x.dtype
-    if x.dtype not in _DTYPE_CODE:
-        x = x.float()
+    x = _kernel_dtype(x)
+    out = _call(_GatherScatterSum, _run_k4, x, edge_src, edge_dst, num_nodes, edge_weight, block_starts)
+    return out if out.dtype == dtype else out.to(dtype)
+
+
+def _run_k4(x, edge_src, edge_dst, num_nodes, edge_weight=None, block_starts=None):
     if x.device.type == "cpu":
-        out = pallas_gather_scatter_sum_plain(
+        return pallas_gather_scatter_sum_plain(
             x, edge_src, edge_dst, num_nodes, edge_weight, block_starts
         )
-    else:
-        out = _gather_scatter_sum_cuda(x, edge_src, edge_dst, num_nodes, edge_weight, block_starts)
-    return out if out.dtype == dtype else out.to(dtype)
+    return _gather_scatter_sum_cuda(x, edge_src, edge_dst, num_nodes, edge_weight, block_starts)
+
+
+class _GatherScatterSum(torch.autograd.Function):
+    """K4 forward. Backward, with ``g`` and ``w`` in f32 (the JAX package
+    forms these products in f32; K4 in x's dtype would round them):
+
+    - ``dx[s] = Σ_{src[e]=s} w[e]·g[dst[e]]``: K4 with src and dst swapped
+      over the stable sort of src, into x's rows rounded up to whole
+      128-row blocks, then cut back and cast to x's dtype;
+    - ``dw[e] = Σ_f x[src[e], f]·g[dst[e], f]`` in f32: a plain row dot.
+
+    Under the blocked layout the pad slots past the frontier took no part
+    in the forward, so they get no share of ``dx`` and a zero ``dw``."""
+
+    @staticmethod
+    def forward(ctx, x, edge_src, edge_dst, num_nodes, edge_weight, block_starts):
+        ctx.save_for_backward(x, edge_src, edge_dst, edge_weight, block_starts)
+        ctx.num_nodes = num_nodes
+        return _run_k4(x, edge_src, edge_dst, num_nodes, edge_weight, block_starts)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, src, dst, w, block_starts = ctx.saved_tensors
+        g = g.float().contiguous()
+        w32 = None if w is None else w.float()
+        live = None
+        if block_starts is not None:
+            live = torch.arange(dst.shape[0], device=dst.device) < block_starts[-1]
+            w32 = live.float() if w32 is None else torch.where(live, w32, 0.0)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            perm = torch.argsort(src, stable=True).to(torch.int32)
+            wp = None if w32 is None else w32[perm].contiguous()
+            n_x = x.shape[0]
+            dx = _run_k4(g, dst[perm], src[perm], _rows_of_blocks(n_x), wp)[:n_x].to(x.dtype)
+        if ctx.needs_input_grad[4]:
+            dw = (x[src].float() * g[dst]).sum(dim=1)
+            if live is not None:
+                dw = torch.where(live, dw, 0.0)
+            dw = dw.to(w.dtype)
+        return dx, None, None, None, dw, None
 
 
 def _lane_vec(f: int, x: torch.Tensor, out: torch.Tensor) -> int:

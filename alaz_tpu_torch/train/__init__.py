@@ -1,1 +1,2 @@
-"""Scoring entry points (training comes with a later slice)."""
+"""Training and scoring: the objective, the train and score steps, the
+AUROC metrics and checkpoints."""

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's scoring paths on one NVIDIA H100.
+"""Drive the PyTorch port's scoring and training paths on one NVIDIA H100.
 
 Run from the root of a checkout:
 
@@ -20,6 +20,9 @@ Phases, each raising on failure:
                 GraphSAGE window's dst ids, K3 on the clustered GAT window's
                 and on the uniform window's src ids, K4 on both windows
                 (COO = blocked bit for bit, two calls alike);
+   backward  -- each wrapper's backward pass at the same shapes against its
+                plain version or a float64 sum, with the kernel it launches
+                counted (K1's is K2, K2's is K1, K3's and K4's dx are K4);
 4. slice     -- three uniform windows of bucket n131072xe1048576 scored
                 through ``WindowScorer`` under the default ``ModelConfig``
                 (GraphSAGE, hidden 128, 2 layers, bf16, kernels on), with
@@ -31,16 +34,30 @@ Phases, each raising on failure:
                 128, 4 heads, 2 layers, bf16, kernels on), launch counts
                 read around that run, one window held against the plain
                 versions and against ``src_gather="xla"`` (bit for bit);
+   experts   -- the uniform windows through ``WindowScorer`` under
+                ``ModelConfig(model="experts")`` (table form), launch
+                counts around the run, one window held against the plain
+                versions and against the masked form;
+   tgn       -- the uniform windows streamed through ``WindowScorer`` under
+                ``ModelConfig(model="tgn")``, the memory grown from 4,096 to
+                131,072 rows by the first; launch counts; scores and the
+                final memory held against the same stream on the plain
+                versions;
 6. op path   -- the public ``ops.gather_scatter_sum`` (K4) over the GAT
                 windows' edges, launch counts read around those calls;
+   train     -- GraphSAGE (uniform window), GAT banded (clustered window)
+                and the experts: one forward and backward with launch counts
+                read around it and every gradient held against the plain
+                versions', then AdamW steps with the loss falling; one
+                ``train_tgn_unrolled`` epoch over the three uniform windows;
 7. numbers   -- kernel times (CUDA events), bounds, plain-version and
-                library-call times; for K4 on each window also its device
-                time without the host's, the CUPTI time of its three
-                kernels, the window's tile and reuse counts, its phase
-                timeline and its time with every edge on one src row;
-                per-window score time
-                of both models, and a profile of the device time by kernel
-                over scored windows of each.
+                library-call times, forward and in each backward use; for
+                K4 on each window also its device time without the host's,
+                the CUPTI time of its three kernels, the window's tile and
+                reuse counts, its phase timeline and its time with every
+                edge on one src row; per-window score time of all four
+                models, and a profile of the device time by kernel over
+                scored windows of each.
 
 Output: JSON lines for each phase, then the kernels' JSON line, the
 card's name and power limit, and last the result line
@@ -250,29 +267,131 @@ def phase_kernels(batch, gat_batch, dev: torch.device) -> dict:
     return errs
 
 
+# -- phase 3b: the kernels as backward passes ---------------------------------
+
+
+def _f64_sum(g: torch.Tensor, ids: torch.Tensor, n: int, w=None) -> torch.Tensor:
+    """``Σ_{ids[e]=i} w[e]·g[e]`` in float64: a reference whose own sums
+    are exact far below the tolerance."""
+    src = g.double() if w is None else g.double() * w.double()[:, None]
+    return torch.zeros((n, g.shape[1]), dtype=torch.float64, device=g.device).index_add_(0, ids.long(), src)
+
+
+def phase_backward(batch, gat_batch, dev: torch.device) -> dict:
+    """Each wrapper's backward pass on the card at the training paths'
+    shapes, against its plain version (or a float64 sum), and the kernel
+    it launches, counted: K1's backward is a K2 launch (exact), K2's a K1
+    launch, K3's a K4 launch over the ids' stable sort, K4's ``dx`` a K4
+    launch with src and dst swapped, in f32. K3's and K4's backward run
+    twice and must give the same bits. Returns the max abs error per case."""
+    from alaz_tpu_torch.ops import segment_kernels as K
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    on_card = dev.type == "cuda"
+    n_pad = batch.n_pad
+    dst = torch.as_tensor(batch.edge_dst, device=dev)
+    e = dst.shape[0]
+    errs, launches = {}, {}
+
+    def run(name, out, g, want):
+        K.reset_launch_counts()
+        out.backward(g, retain_graph=True)
+        _sync(dev)
+        launches[name] = K.launch_counts()
+        if on_card:
+            require(launches[name] == want, f"{name}: backward launches {launches[name]}, expected {want}")
+
+    def randn(shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    # K1's backward, as GraphSAGE (bf16 → bf16, F=128) and GAT (bf16 → f32, F=132) call K1
+    for name, f, out_dtype in (("k1_bwd", F_MAIN, None), ("k1_bwd_gat", F_MAIN + 4, torch.float32)):
+        msgs = randn((e, f)).requires_grad_()
+        out = K.scatter_sum_sorted(msgs, dst, n_pad, out_dtype)
+        g = randn(out.shape, out.dtype)
+        run(name, out, g, _counts(0, 1, 0, 0))
+        ref = K.segment_expand_sorted_plain(g.to(msgs.dtype), dst)
+        require(msgs.grad.dtype == msgs.dtype and torch.equal(msgs.grad, ref), f"{name} is not bit-exact")
+        errs[name] = float((msgs.grad.float() - ref.float()).abs().max())
+    del msgs, out, g, ref
+
+    # K2's backward: the sorted sum of g over dst
+    v = randn((n_pad, F_MAIN)).requires_grad_()
+    out = K.segment_expand_sorted(v, dst, n_pad)
+    g = randn(out.shape)
+    run("k2_bwd", out, g, _counts(1, 0, 0, 0))
+    ref = K.scatter_sum_sorted_plain(g, dst, n_pad, torch.bfloat16)
+    err = (v.grad.float() - ref.float()).abs()
+    require(bool((err <= _k1_tolerance(ref)).all()), "k2_bwd disagrees with its plain version")
+    errs["k2_bwd"] = float(err.max())
+    del v, out, g
+
+    # K3's backward on the clustered GAT window's src ids and the uniform one's
+    for ids_name, b in (("clustered", gat_batch), ("uniform", batch)):
+        name = f"k3_bwd_{ids_name}"
+        src = torch.as_tensor(b.edge_src, device=dev)
+        v = randn((b.n_pad, F_MAIN)).requires_grad_()
+        out = K.gather_rows_banded(v, src, b.n_pad)
+        g = randn(out.shape)
+        run(name, out, g, _counts(0, 0, 0, 1))
+        first, v.grad = v.grad, None
+        out.backward(g)
+        require(torch.equal(first, v.grad), f"{name}: two backward passes differ")
+        ref = _f64_sum(g, src, b.n_pad).to(v.dtype)
+        err = (first.float() - ref.float()).abs()
+        require(bool((err <= _k1_tolerance(ref)).all()), f"{name} disagrees with the float64 sum")
+        errs[name] = float(err.max())
+        del v, out, g, first, ref
+
+    # K4's backward (dx and dw) on the GAT window's edges, bf16 x, f32 weights
+    src = torch.as_tensor(gat_batch.edge_src, device=dev)
+    gdst = torch.as_tensor(gat_batch.edge_dst, device=dev)
+    x = randn((gat_batch.n_pad, F_MAIN)).requires_grad_()
+    w = (torch.rand(gdst.shape[0], generator=gen, device=dev) + 0.5).requires_grad_()
+    out = K.pallas_gather_scatter_sum(x, src, gdst, gat_batch.n_pad, w)
+    g = randn(out.shape)
+    run("k4_bwd", out, g, _counts(0, 0, 0, 1))
+    dx, dw = x.grad, w.grad
+    x.grad = w.grad = None
+    out.backward(g)
+    require(torch.equal(dx, x.grad) and torch.equal(dw, w.grad), "k4_bwd: two backward passes differ")
+    ref = _f64_sum(g[gdst.long()], src, gat_batch.n_pad, w.detach()).to(x.dtype)
+    err = (dx.float() - ref.float()).abs()
+    require(bool((err <= _k1_tolerance(ref)).all()), "k4_bwd dx disagrees with the float64 sum")
+    errs["k4_bwd_dx"] = float(err.max())
+    dw_ref = (x.detach()[src.long()].float() * g.float()[gdst.long()]).sum(dim=1)
+    dw_err = (dw - dw_ref).abs()
+    require(float(dw_err.max()) <= 1e-5 * float(dw_ref.abs().max()), "k4_bwd dw disagrees with its plain version")
+    errs["k4_bwd_dw"] = float(dw_err.max())
+    emit("backward_vs_plain", {
+        "tolerance": "K1's backward bit-exact; K2's, K3's and K4's dx within one bf16 ulp "
+                     "(2^-7·|ref| + 1e-5·max|ref|) of the plain version or the float64 sum; "
+                     "K4's dw within 1e-5 of max|ref|",
+        "max_abs_err": errs,
+        "launches": launches,
+    })
+    return errs
+
+
 # -- phases 4 and 5 -----------------------------------------------------------
 
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the scoring paths through the kernels' plain versions (for the
-    reference forwards only; restored on exit)."""
+    """Route the forward and backward passes of every kernel wrapper through
+    the kernels' plain versions on the card (for the reference runs only;
+    restored on exit)."""
     from alaz_tpu_torch.ops import segment_kernels as K
 
-    saved = K.scatter_sum_sorted, K.segment_expand_sorted, K.gather_rows_banded
-
-    def scatter(msgs, edge_dst, num_nodes, out_dtype=None, block_starts=None):
-        return K.scatter_sum_sorted_plain(
-            msgs, edge_dst, num_nodes, msgs.dtype if out_dtype is None else out_dtype, block_starts
-        )
-
-    K.scatter_sum_sorted = scatter
-    K.segment_expand_sorted = lambda v, edge_dst, num_nodes: K.segment_expand_sorted_plain(v, edge_dst)
-    K.gather_rows_banded = lambda v, ids, num_nodes: K.gather_rows_banded_plain(v, ids)
+    saved = K._run_k1, K._run_k2, K._run_k3, K._run_k4
+    K._run_k1 = K.scatter_sum_sorted_plain
+    K._run_k2 = lambda v, edge_dst, num_nodes: K.segment_expand_sorted_plain(v, edge_dst)
+    K._run_k3 = lambda v, ids, num_nodes: K.gather_rows_banded_plain(v, ids)
+    K._run_k4 = K.pallas_gather_scatter_sum_plain
     try:
         yield
     finally:
-        K.scatter_sum_sorted, K.segment_expand_sorted, K.gather_rows_banded = saved
+        K._run_k1, K._run_k2, K._run_k3, K._run_k4 = saved
 
 
 def _score_windows(cfg, batches, device: str):
@@ -411,6 +530,116 @@ def phase_gat_slice(batches, device: str = "cuda") -> tuple:
     return out, scorer
 
 
+def phase_experts_slice(batches, device: str = "cuda") -> tuple:
+    """The edge-type experts (``"table"``, hidden 128, 9 experts, 2 layers,
+    bf16, kernels on) over the uniform windows through WindowScorer, launch
+    counts read around that run (K1 2n, K2 n); one window held against the
+    plain versions, and the ``"masked"`` form against ``"table"`` on it:
+    the same products, rounded to bf16 at other places (a table row per
+    node against a product per edge, T masked terms summed in bf16), held
+    at the same four bf16 ulps of the largest logit. Returns (summary,
+    scorer)."""
+    from alaz_tpu_torch.config import ModelConfig
+    from alaz_tpu_torch.train.trainstep import make_score_fn
+
+    cfg = ModelConfig(model="experts")
+    require(
+        (cfg.hidden_dim, cfg.num_layers, cfg.num_edge_types, cfg.expert_dispatch, cfg.dtype, cfg.use_pallas)
+        == (128, 2, 9, "table", "bfloat16", True),
+        f"unexpected experts ModelConfig {cfg}",
+    )
+    scorer, on_card, window_s, all_scores, launches, peak_bytes = _score_windows(cfg, batches, device)
+    n = len(batches)
+    if on_card:
+        require(launches == _counts(2 * n, n, 0, 0),
+                f"expected 2 K1 and 1 K2 launches per forward, got {launches} for {n} forwards")
+    errs, got = _vs_plain(cfg, scorer, batches[0], device)
+    masked_cfg = dataclasses.replace(cfg, expert_dispatch="masked")
+    masked = make_score_fn(masked_cfg, device)(scorer.params, batches[0].device_arrays(cfg.edge_layout))
+    b = batches[0]
+    masked_errs = {}
+    for key, n_real in (("edge_logits", b.n_edges), ("node_logits", b.n_nodes)):
+        r, m = got[key][:n_real], masked[key][:n_real]
+        err, bound = float((m - r).abs().max()), 2.0**-6 * float(r.abs().max())
+        require(err <= bound, f"experts {key}: masked vs table differ by {err} > {bound}")
+        masked_errs[key] = {"max_abs_err": err, "bound": bound}
+    out = {
+        "bucket": b.bucket_key,
+        "windows": n,
+        "window_s": window_s,
+        "launches": launches,
+        "vs_plain_versions": errs,
+        "masked_vs_table": masked_errs,
+        "score_mean": float(sum(float(sc.mean()) for sc in all_scores) / n),
+    }
+    if on_card:
+        out["max_memory_allocated_bytes"] = peak_bytes
+    emit("experts_slice", out)
+    return out, scorer
+
+
+def _logit_scale(scores: np.ndarray) -> float:
+    s = np.clip(scores.astype(np.float64), 1e-12, 1 - 1e-12)
+    return float(np.abs(np.log(s) - np.log1p(-s)).max())
+
+
+def phase_tgn_slice(batches, device: str = "cuda") -> tuple:
+    """TGN (hidden 128, 2 layers, bf16, kernels on) streamed over the
+    uniform windows, in their random layout (the JAX service refuses to
+    renumber nodes under TGN: its memory is slot-indexed across windows),
+    through WindowScorer, which owns the memory: presized to
+    ``tgn_max_nodes`` (4,096 rows), grown to the 131,072-row bucket by the
+    first window. Launch counts read around the stream (K1 2n, K2 n).
+    Scores and the final memory held against the same stream on the plain
+    versions: scores at a quarter of four bf16 ulps of the largest logit
+    (sigmoid's slope is at most 1/4); the memory, whose gates read bf16
+    node states (an ulp apart moves a gate; the CPU parity against the JAX
+    package sees 0.036 after three windows), at 2^-4 of its ±1 range.
+    Returns (summary, scorer)."""
+    from alaz_tpu_torch.config import ModelConfig
+    from alaz_tpu_torch.runtime.scorer import WindowScorer
+
+    cfg = ModelConfig(model="tgn")
+    require((cfg.hidden_dim, cfg.num_layers, cfg.dtype, cfg.use_pallas, cfg.tgn_max_nodes)
+            == (128, 2, "bfloat16", True, 4096), f"unexpected TGN ModelConfig {cfg}")
+    for b in batches:
+        require(b.n_pad > cfg.tgn_max_nodes, "the windows must outgrow the presized memory")
+    scorer, on_card, window_s, all_scores, launches, peak_bytes = _score_windows(cfg, batches, device)
+    n = len(batches)
+    if on_card:
+        require(launches == _counts(2 * n, n, 0, 0),
+                f"expected 2 K1 and 1 K2 launches per window, got {launches} for {n} windows")
+    require(tuple(scorer.memory.shape) == (batches[0].n_pad, cfg.hidden_dim),
+            f"memory {tuple(scorer.memory.shape)} did not grow to the bucket")
+    plain = WindowScorer(cfg, scorer.params, device=device)
+    require(tuple(plain.memory.shape) == (cfg.tgn_max_nodes, cfg.hidden_dim), "memory not presized")
+    with plain_kernels():
+        plain_scores = [plain.score(b) for b in batches]
+    score_errs = []
+    for got, ref in zip(all_scores, plain_scores):
+        err, bound = float(np.abs(got - ref).max()), 0.25 * 2.0**-6 * _logit_scale(ref)
+        require(err <= bound, f"tgn scores: kernels vs plain versions differ by {err} > {bound}")
+        score_errs.append({"max_abs_err": err, "bound": bound})
+    mem_err = float((scorer.memory - plain.memory).abs().max())
+    require(mem_err <= 2.0**-4, f"tgn memory: kernels vs plain versions differ by {mem_err}")
+    require(bool(torch.isfinite(scorer.memory).all()), "tgn memory not finite")
+    live = int((scorer.memory.abs().sum(dim=1) > 0).sum())
+    out = {
+        "bucket": batches[0].bucket_key,
+        "windows": n,
+        "window_s": window_s,
+        "launches": launches,
+        "memory_rows": [cfg.tgn_max_nodes, int(scorer.memory.shape[0])],
+        "memory_rows_nonzero": live,
+        "vs_plain_versions": {"scores": score_errs, "memory_max_abs_err": mem_err, "memory_bound": 2.0**-4},
+        "score_mean": float(sum(float(sc.mean()) for sc in all_scores) / n),
+    }
+    if on_card:
+        out["max_memory_allocated_bytes"] = peak_bytes
+    emit("tgn_slice", out)
+    return out, scorer
+
+
 # -- phase 6 ----------------------------------------------------------------
 
 
@@ -450,6 +679,136 @@ def phase_op_path(batches, device: str = "cuda") -> dict:
         errs.append(float(err.max()))
     out = {"calls": len(batches), "launches": launches, "max_abs_err": errs}
     emit("op_path", out)
+    return out
+
+
+# -- phase 6b: training ----------------------------------------------------------
+
+
+def window_labels(b) -> np.ndarray:
+    """Fault labels the smoke draws for a window: an edge whose first
+    feature is past that feature's 95th percentile over the real edges."""
+    lab = np.zeros(b.e_pad, np.float32)
+    f0 = b.edge_feats[: b.n_edges, 0]
+    lab[: b.n_edges] = f0 > np.quantile(f0, 0.95)
+    return lab
+
+
+def _grads(cfg, params, graph, label) -> tuple:
+    from alaz_tpu_torch.train.trainstep import backward, make_loss_fn
+
+    for p in params.parameters():
+        p.grad = None
+    loss = make_loss_fn(cfg)(params, graph, label)
+    backward(params, loss)
+    return float(loss.detach()), {k: p.grad.clone() for k, p in params.named_parameters()}
+
+
+# launches of one forward and backward: forward K1/K2/K3, then K1's
+# backward (a K2 each), K2's (a K1 each), K3's (a K4 each)
+TRAIN_LAUNCHES = {
+    "graphsage": _counts(2 + 1, 1 + 2, 0, 0),
+    "gat": _counts(2 + 3, 3 + 2, 3, 3),
+    "experts": _counts(2 + 1, 1 + 2, 0, 0),
+}
+
+
+def phase_train(tag: str, cfg, batch, device: str = "cuda", steps: int = 5) -> dict:
+    """Training at full width on one window: one forward and backward with
+    the kernels, launch counts read around it; the same on the plain
+    versions on the card, every param's gradient held to 2^-4 of that
+    param's largest gradient (the two sum in another order, so a bf16
+    activation may round an ulp apart and carry that through the
+    backward); then ``steps`` steps of ``make_train_step`` (AdamW), each
+    loss finite and the last below the first, with the step's time and
+    the peak memory over the steps."""
+    from alaz_tpu_torch.convert import graph_to_torch
+    from alaz_tpu_torch.models.registry import init_params
+    from alaz_tpu_torch.ops import segment_kernels as K
+    from alaz_tpu_torch.train.trainstep import _adamw, make_train_step
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    params = init_params(cfg, key=0, device=dev)
+    graph = graph_to_torch(batch.device_arrays(cfg.edge_layout), dev)
+    label = torch.as_tensor(window_labels(batch), device=dev)
+    K.reset_launch_counts()
+    loss_k, grads_k = _grads(cfg, params, graph, label)
+    _sync(dev)
+    launches = K.launch_counts()
+    if on_card:
+        require(launches == TRAIN_LAUNCHES[cfg.model],
+                f"{tag}: launches of one forward and backward {launches}, expected {TRAIN_LAUNCHES[cfg.model]}")
+    with plain_kernels():
+        loss_p, grads_p = _grads(cfg, params, graph, label)
+    worst = 0.0
+    for k, ref in grads_p.items():
+        got = grads_k[k]
+        require(bool(torch.isfinite(got).all()), f"{tag}: gradient of {k} not finite")
+        rel = float((got - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+        require(rel <= 2.0**-4, f"{tag}: gradient of {k} differs from the plain versions' by {rel} of its max")
+        worst = max(worst, rel)
+    del grads_k, grads_p
+    opt = _adamw(params, 3e-3)
+    step = make_train_step(cfg, device=dev)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(step(params, opt, graph, label)))  # float() waits for the step
+        step_s.append(time.perf_counter() - t0)
+    require(all(np.isfinite(losses)), f"{tag}: loss not finite {losses}")
+    require(losses[-1] < losses[0], f"{tag}: loss did not fall {losses}")
+    out = {
+        "bucket": batch.bucket_key,
+        "positives": int(window_labels(batch).sum()),
+        "launches_forward_backward": launches,
+        "loss_kernels_vs_plain": [loss_k, loss_p],
+        "grad_max_err_of_param_max": worst,
+        "losses": losses,
+        "step_s": step_s,
+        "step_s_median_after_first": statistics.median(step_s[1:]) if steps > 1 else step_s[0],
+    }
+    if on_card:
+        out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    emit(tag, out)
+    return out
+
+
+def phase_train_tgn(batches, device: str = "cuda") -> dict:
+    """One ``train_tgn_unrolled`` epoch (one AdamW step) over the uniform
+    windows as one sequence, the memory threaded through all three without
+    a detach; launch counts read around it (per window K1 2 + 1 and K2
+    1 + 2), a finite loss and a gradient on the GRU. Its time includes the
+    params' init and the windows' move to the card."""
+    from alaz_tpu_torch.config import ModelConfig
+    from alaz_tpu_torch.ops import segment_kernels as K
+    from alaz_tpu_torch.train.trainstep import train_tgn_unrolled
+
+    cfg = ModelConfig(model="tgn")
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    labelled = [dataclasses.replace(b, edge_label=window_labels(b)) for b in batches]
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, losses = train_tgn_unrolled(cfg, labelled, epochs=1, device=dev)
+    epoch_s = time.perf_counter() - t0
+    launches = K.launch_counts()
+    n = len(batches)
+    if on_card:
+        require(launches == _counts(3 * n, 3 * n, 0, 0), f"tgn unrolled: launches {launches} for {n} windows")
+    require(np.isfinite(losses).all() and state.step == 1, f"tgn unrolled: losses {losses}")
+    gru = state.params.gru_n.w.grad
+    require(gru is not None and float(gru.abs().max()) > 0, "tgn unrolled: the GRU got no gradient")
+    out = {"windows": n, "launches": launches, "loss": losses[0], "epoch_s": epoch_s}
+    if on_card:
+        out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    emit("train_tgn", out)
     return out
 
 
@@ -718,6 +1077,84 @@ def numbers_k4(b, x, gen, dev) -> dict:
     return out
 
 
+def numbers_backward(batches, gat_batches, dev) -> dict:
+    """Each kernel in its backward use, at the training paths' shapes (bf16,
+    F=128, COO), CUDA events: its time, bound and library call.
+
+    - K2 as K1's backward: ``g[dst]`` of a bf16 ``[N, 128]`` cotangent;
+      library ``index_select``.
+    - K1 as K2's backward: the sorted sum of a bf16 ``[E, 128]`` cotangent;
+      library ``index_add_`` (bf16).
+    - K4 as K3's backward (``unsorted_segment_sum``, over the clustered
+      window's src ids): the whole pass (the ids' stable sort, the gather
+      of the sorted ids, K4, the cast) and K4 alone; library ``index_add_``
+      of the f32 cotangent (pre-cast).
+    - K4 as K4's ``dx`` (f32 ``g``, f32 weights, src and dst swapped): the
+      whole pass (sort, gathers, K4, cast) and K4 alone; library
+      ``index_add_`` in f32 of the products ``w·g[dst]`` (pre-formed: it
+      does less than the function).
+    """
+    from alaz_tpu_torch.ops import segment_kernels as K
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    f = F_MAIN
+    dst = torch.as_tensor(batches[0].edge_dst, device=dev)
+    e = dst.shape[0]
+    dst64 = dst.long()
+    rows_dst = int(torch.unique(dst).numel())
+    out = {}
+
+    g_nodes = torch.randn((N_MAIN, f), generator=gen, device=dev).bfloat16()
+    out["k1_bwd"] = {  # K2's kernel
+        "ms": time_ms(lambda: K._run_k2(g_nodes, dst, N_MAIN)),
+        "library_ms": time_ms(lambda: torch.index_select(g_nodes, 0, dst64)),
+        "bound": _bound(e * 4 + e * f * 2 + rows_dst * f * 2, 0),
+    }
+    g_edges = torch.randn((e, f), generator=gen, device=dev).bfloat16()
+    acc = torch.zeros((N_MAIN, f), dtype=torch.bfloat16, device=dev)
+    out["k2_bwd"] = {  # K1's kernel
+        "ms": time_ms(lambda: K._run_k1(g_edges, dst, N_MAIN, torch.bfloat16)),
+        "library_ms": time_ms(lambda: acc.index_add_(0, dst, g_edges)),
+        "bound": _bound(e * (f * 2 + 4) + N_MAIN * f * 2 + (N_MAIN // 128 + 1) * 4, e * f),
+    }
+
+    src = torch.as_tensor(gat_batches[0].edge_src, device=dev)
+    perm = torch.argsort(src, stable=True).to(torch.int32)
+    sorted_src = src[perm]
+    g32 = g_edges.float()
+    acc32 = torch.zeros((N_MAIN, f), dtype=torch.float32, device=dev)
+    out["k3_bwd"] = {  # K4's kernel over the sorted ids, unweighted
+        "ms": time_ms(lambda: K.unsorted_segment_sum(g_edges, src, N_MAIN)),
+        "k4_only_ms": time_ms(lambda: K._run_k4(g_edges, perm, sorted_src, N_MAIN)),
+        "argsort_ms": time_ms(lambda: torch.argsort(src, stable=True)),
+        "library_ms": time_ms(lambda: acc32.index_add_(0, src, g32), iters=20),
+        "bound": _bound(e * 4 + e * f * 2 + N_MAIN * f * 2, e * f),
+    }
+    del g32, acc32
+
+    gdst = torch.as_tensor(gat_batches[0].edge_dst, device=dev)
+    w = torch.rand(e, generator=gen, device=dev) + 0.5
+    gn32 = torch.randn((N_MAIN, f), generator=gen, device=dev)
+    perm_s = torch.argsort(src, stable=True).to(torch.int32)
+    dst_by_src, src_sorted, w_sorted = gdst[perm_s], src[perm_s], w[perm_s]
+
+    def dx_pass():
+        p = torch.argsort(src, stable=True).to(torch.int32)
+        return K._run_k4(gn32, gdst[p], src[p], N_MAIN, w[p]).bfloat16()
+
+    prods = gn32[gdst.long()] * w[:, None]
+    acc32 = torch.zeros((N_MAIN, f), dtype=torch.float32, device=dev)
+    rows_gdst = int(torch.unique(gdst).numel())
+    out["k4_bwd_dx"] = {  # K4's kernel, roles swapped, f32
+        "ms": time_ms(dx_pass),
+        "k4_only_ms": time_ms(lambda: K._run_k4(gn32, dst_by_src, src_sorted, N_MAIN, w_sorted)),
+        "library_ms": time_ms(lambda: acc32.index_add_(0, src, prods), iters=20),
+        "bound": _bound(3 * e * 4 + rows_gdst * f * 4 + N_MAIN * f * 2, 2 * e * f),
+    }
+    emit("backward_kernels", {k: dict(v, bound=list(v["bound"])) for k, v in out.items()})
+    return out
+
+
 def numbers_window(tag: str, scorer, batches, apply, other_cfg=None) -> dict:
     """One model's window, end to end and by part (steady state: library
     built, buffers warm): score time, transfer, and the forward with the
@@ -762,29 +1199,43 @@ def numbers_window(tag: str, scorer, batches, apply, other_cfg=None) -> dict:
     return out
 
 
-def phase_numbers(launches: dict, errs: dict, scorer, gat_scorer, batches, gat_batches) -> list:
-    """Times and bounds of the four kernels and of both models' windows;
-    returns the kernels' entries."""
-    from alaz_tpu_torch.models import gat, graphsage
+def _as_backward(serves: str, n: dict, err: float) -> dict:
+    return {
+        "serves": serves, "ms": n["ms"], "bound_ms": n["bound"][0], "bound_by": n["bound"][1],
+        "library_ms": n["library_ms"], "max_abs_err": err,
+        **{k: n[k] for k in ("k4_only_ms", "argsort_ms") if k in n},
+    }
+
+
+def phase_numbers(launches: dict, errs: dict, bwd_errs: dict, train_launches: dict, scorers: dict,
+                  batches, gat_batches) -> list:
+    """Times and bounds of the four kernels, forward and in their backward
+    uses, and of every model's window; returns the kernels' entries."""
+    from alaz_tpu_torch.models import experts, gat, graphsage, tgn
 
     dev = torch.device("cuda")
     k12 = numbers_k1_k2(batches, dev)
     k34 = numbers_k3_k4(batches, gat_batches, dev)
-    sage = numbers_window("window", scorer, batches, graphsage.apply)
+    bwd = numbers_backward(batches, gat_batches, dev)
+    sage = numbers_window("window", scorers["graphsage"], batches, graphsage.apply)
     sage["kernels_ms_per_forward"] = 2 * k12["k1"][0] + k12["k2"][0]
     gat_win = numbers_window(
-        "gat_window", gat_scorer, gat_batches, gat.apply,
-        dataclasses.replace(gat_scorer.cfg, src_gather="xla"),
+        "gat_window", scorers["gat"], gat_batches, gat.apply,
+        dataclasses.replace(scorers["gat"].cfg, src_gather="xla"),
     )
+    numbers_window("experts_window", scorers["experts"], batches, experts.apply)
+    numbers_window("tgn_window", scorers["tgn"], batches, tgn.apply)
     k3c = k34["k3"]["clustered"]
     emit("kernels_ms_per_forward", {
         "graphsage": sage["kernels_ms_per_forward"],
         "gat_k3_only": 3 * k3c["ms"],
         "gat_forward_ms": gat_win["forward_ms"],
     })
-    total = {k: sum(p[k] for p in launches.values()) for k in _counts(0, 0, 0, 0)}
+    names = tuple(_counts(0, 0, 0, 0))
+    total = {k: sum(p[k] for p in launches.values()) for k in names}
     emit("launches_by_path", launches)
-    return [
+    per_step = {k: {m: c[k] for m, c in train_launches.items()} for k in names}
+    entries = [
         _kernel_entry("scatter_sum_sorted", K1_REPLACES, total["scatter_sum_sorted"],
                       errs["k1_bf16_coo"], *k12["k1"]),
         _kernel_entry("segment_expand_sorted", K2_REPLACES, total["segment_expand_sorted"],
@@ -795,6 +1246,22 @@ def phase_numbers(launches: dict, errs: dict, scorer, gat_scorer, batches, gat_b
         _kernel_entry("pallas_gather_scatter_sum", K4_REPLACES, total["pallas_gather_scatter_sum"],
                       errs["k4_bf16_w"], *k34["k4"]),
     ]
+    entries[0]["backward"] = [_as_backward(
+        "segment_expand_sorted's backward: dv[d] = sum over dst[e]=d of g[e]", bwd["k2_bwd"],
+        bwd_errs["k2_bwd"])]
+    entries[1]["backward"] = [_as_backward(
+        "scatter_sum_sorted's backward: g[dst] in the messages' dtype", bwd["k1_bwd"],
+        bwd_errs["k1_bwd"])]
+    entries[2]["backward"] = []
+    entries[3]["backward"] = [
+        _as_backward("gather_rows_banded's backward: dv[i] = sum over ids[e]=i of g[e], over the ids' stable sort",
+                     bwd["k3_bwd"], bwd_errs["k3_bwd_clustered"]),
+        _as_backward("pallas_gather_scatter_sum's dx: sum over src[e]=s of w[e]*g[dst[e]], f32",
+                     bwd["k4_bwd_dx"], bwd_errs["k4_bwd_dx"]),
+    ]
+    for entry in entries:
+        entry["launches_per_train_step"] = per_step[entry["name"]]
+    return entries
 
 
 def phase_profile(tag: str, scorer, batch, windows: int = 2) -> dict:
@@ -843,6 +1310,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
         return 2
+    from alaz_tpu_torch.config import ModelConfig
     from alaz_tpu_torch.replay.synth import example_batch
 
     # f32 matmuls in full f32 (no TF32) for every comparison below
@@ -863,14 +1331,34 @@ def main() -> int:
         require(b.bucket_key == f"n{N_MAIN}xe{E_MAIN}", f"bucket {b.bucket_key}")
     phase_layout(gat_batches, seeds)
 
-    errs = phase_kernels(batches[0], gat_batches[0], torch.device("cuda"))
+    dev = torch.device("cuda")
+    errs = phase_kernels(batches[0], gat_batches[0], dev)
+    bwd_errs = phase_backward(batches[0], gat_batches[0], dev)
     sl, scorer = phase_slice(batches)
     gsl, gat_scorer = phase_gat_slice(gat_batches)
+    esl, experts_scorer = phase_experts_slice(batches)
+    tsl, tgn_scorer = phase_tgn_slice(batches)
     op = phase_op_path(gat_batches)
-    launches = {"graphsage": sl["launches"], "gat": gsl["launches"], "gather_scatter_sum": op["launches"]}
-    kernels = phase_numbers(launches, errs, scorer, gat_scorer, batches, gat_batches)
+    trains = {
+        "graphsage": phase_train("train_graphsage", ModelConfig(), batches[0]),
+        "gat": phase_train("train_gat", ModelConfig(model="gat", src_gather="banded"), gat_batches[0]),
+        "experts": phase_train("train_experts", ModelConfig(model="experts"), batches[0]),
+    }
+    tgn_train = phase_train_tgn(batches)
+    launches = {
+        "graphsage": sl["launches"], "gat": gsl["launches"], "experts": esl["launches"],
+        "tgn": tsl["launches"], "gather_scatter_sum": op["launches"],
+        **{f"train_{m}": t["launches_forward_backward"] for m, t in trains.items()},
+        "train_tgn_unrolled": tgn_train["launches"],
+    }
+    train_launches = {m: t["launches_forward_backward"] for m, t in trains.items()}
+    train_launches["tgn_unrolled_3_windows"] = tgn_train["launches"]
+    scorers = {"graphsage": scorer, "gat": gat_scorer, "experts": experts_scorer, "tgn": tgn_scorer}
+    kernels = phase_numbers(launches, errs, bwd_errs, train_launches, scorers, batches, gat_batches)
     phase_profile("profile", scorer, batches[0])
     phase_profile("gat_profile", gat_scorer, gat_batches[0])
+    phase_profile("experts_profile", experts_scorer, batches[0])
+    phase_profile("tgn_profile", tgn_scorer, batches[0])
 
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -10,6 +10,9 @@ Tolerances: K2 and K3 bit-exact. K1 and K4 sum in f32 in another order
 than the plain versions: f32 output within 1e-5 of the output's largest
 magnitude; bf16 output within one bf16 ulp (≤ 2^-7·|ref|) of it. K4's
 reference takes its plain version's sums in float64 (``_k4_reference``).
+The backward passes: K1's (a K2 launch) bit-exact; K2's, K3's and K4's
+``dx`` (a K1, K4 and K4 launch) held to the float64 sum at K1's
+tolerance.
 """
 
 from __future__ import annotations
@@ -323,3 +326,181 @@ def test_gather_scatter_tiles(dev, case, dtype):
     empty = torch.ones(n_pad, dtype=torch.bool, device=dev)
     empty[d.long()] = False
     assert float(got[empty].float().abs().max()) == 0.0
+
+
+# -- the kernels as backward passes ------------------------------------------
+
+
+def _f64_sum(g, ids, n, w=None, live=None):
+    """``Σ_{ids[e]=i} w[e]·g[e]`` over the live edges, in float64 on the CPU."""
+    src = g.cpu().double()
+    if w is not None:
+        src = src * w.cpu().double()[:, None]
+    if live is not None:
+        src = src[:live]
+        ids = ids[:live]
+    return torch.zeros((n, g.shape[1]), dtype=torch.float64).index_add_(0, ids.cpu().long(), src)
+
+
+def _pad_tail(dst, n_edges, n_pad):
+    """Pad slots past the live edges on the last row, as the batches have
+    them, and the blocked extents over the live prefix."""
+    dst = dst.copy()
+    dst[n_edges:] = n_pad - 1
+    bs = np.searchsorted(dst[:n_edges], np.arange(0, n_pad + 1, 128)).astype(np.int32)
+    return dst, bs
+
+
+@pytest.mark.parametrize("f", [4, 132])
+@pytest.mark.parametrize("in_dtype,out_dtype", [
+    (torch.float32, None), (torch.bfloat16, None), (torch.bfloat16, torch.float32),
+])
+@pytest.mark.parametrize("layout", ["coo", "blocked"])
+def test_scatter_sum_sorted_backward_is_one_expand(dev, f, in_dtype, out_dtype, layout):
+    """K1's backward launches K2 once: ``g[dst]`` cast to the messages'
+    dtype, bit for bit, pad slots past the blocked frontier included (they
+    get their row's ``g``, as in the JAX package); a hub row."""
+    n_pad, e, n_edges = 512, 4096, 4000
+    dst, bs = _pad_tail(_sorted_dst(n_pad, e, f, hub=True), n_edges, n_pad)
+    d = torch.as_tensor(dst, device=dev)
+    starts = torch.as_tensor(bs, device=dev) if layout == "blocked" else None
+    msgs = torch.randn((e, f), device=dev).to(in_dtype).requires_grad_()
+    out = K.scatter_sum_sorted(msgs, d, n_pad, out_dtype, starts)
+    g = torch.randn(out.shape, device=dev).to(out.dtype)
+    K.reset_launch_counts()
+    out.backward(g)
+    assert K.launch_counts() == {
+        "scatter_sum_sorted": 0, "segment_expand_sorted": 1,
+        "gather_rows_banded": 0, "pallas_gather_scatter_sum": 0,
+    }
+    assert msgs.grad.dtype == in_dtype
+    assert torch.equal(msgs.grad, K.segment_expand_sorted_plain(g.to(in_dtype), d))
+
+
+@pytest.mark.parametrize("f", [4, 128, 129])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_expand_sorted_backward_is_one_sorted_sum(dev, f, dtype):
+    """K2's backward launches K1 once: the sorted sum of ``g`` over dst in
+    g's dtype, with empty rows (the upper half) and a hub row; held to the
+    float64 sum at K1's tolerance."""
+    n_pad, e = 512, 4096
+    d = torch.as_tensor(_sorted_dst(n_pad, e, f, hub=True), device=dev)
+    v = torch.randn((n_pad, f), device=dev).to(dtype).requires_grad_()
+    out = K.segment_expand_sorted(v, d, n_pad)
+    g = torch.randn(out.shape, device=dev).to(dtype)
+    K.reset_launch_counts()
+    out.backward(g)
+    assert K.launch_counts()["scatter_sum_sorted"] == 1 and sum(K.launch_counts().values()) == 1
+    assert v.grad.dtype == dtype
+    _assert_k1_close(v.grad.cpu(), _f64_sum(g, d, n_pad).to(dtype))
+    assert float(v.grad[n_pad // 2 :].float().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,e,hub", [(512, 5000, False), (300, 5000, True), (512, 300, False), (512, 0, False)])
+def test_gather_rows_banded_backward_is_one_k4(dev, dtype, n, e, hub):
+    """K3's backward launches K4 once over the ids' stable sort: the
+    unsorted sum of ``g`` over the ids, held to the float64 sum at K1's
+    tolerance; a hub id, a table off the 128-row grid, fewer edges than one
+    K4 tile, no edges. Two runs give the same bits (no atomics)."""
+    ids = torch.randint(0, n, (e,), dtype=torch.int32, device=dev)
+    if hub:
+        ids[: e // 2] = 7
+    v = torch.randn((n, 48), device=dev).to(dtype).requires_grad_()
+    out = K.gather_rows_banded(v, ids, n)
+    g = torch.randn(out.shape, device=dev).to(dtype)
+    K.reset_launch_counts()
+    out.backward(g, retain_graph=True)
+    assert K.launch_counts()["pallas_gather_scatter_sum"] == 1 and sum(K.launch_counts().values()) == 1
+    first, v.grad = v.grad, None
+    out.backward(g)
+    assert torch.equal(first, v.grad)
+    assert first.dtype == dtype and first.shape == (n, 48)
+    _assert_k1_close(first.cpu(), _f64_sum(g, ids, n).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("layout", ["coo", "blocked"])
+@pytest.mark.parametrize("e", [300, 11_000])
+def test_gather_scatter_sum_backward(dev, dtype, weighted, layout, e):
+    """K4's ``dx`` launches K4 once (src and dst swapped, f32 products), held
+    to the float64 sum at K1's tolerance in x's dtype; ``dw`` is the f32 row
+    dot. Under the blocked layout the pad slots past the frontier took no
+    part in the forward: no share of ``dx``, a zero ``dw``. A hub row of
+    10,000 edges, fewer edges than one tile; two runs give the same bits."""
+    n_pad, n_x, f = 512, 300, 48
+    n_edges = e - 37
+    dst = _sorted_dst(n_pad, e, e)
+    if e > 10_000:
+        dst[:10_000] = 3
+        dst = np.sort(dst)
+    dst, bs = _pad_tail(dst, n_edges, n_pad)
+    d = torch.as_tensor(dst, device=dev)
+    src = torch.randint(0, n_x, (e,), dtype=torch.int32, device=dev)
+    x = torch.randn((n_x, f), device=dev).to(dtype).requires_grad_()
+    w = (torch.rand(e, device=dev) + 0.5).requires_grad_() if weighted else None
+    blocked = layout == "blocked"
+    out = K.pallas_gather_scatter_sum(x, src, d, n_pad, w, torch.as_tensor(bs, device=dev) if blocked else None)
+    g = torch.randn(out.shape, device=dev).to(dtype)
+    K.reset_launch_counts()
+    out.backward(g, retain_graph=True)
+    assert K.launch_counts()["pallas_gather_scatter_sum"] == 1 and sum(K.launch_counts().values()) == 1
+    dx, dw = x.grad, (w.grad if weighted else None)
+    x.grad = None
+    if weighted:
+        w.grad = None
+    out.backward(g)
+    assert torch.equal(dx, x.grad) and (not weighted or torch.equal(dw, w.grad))
+    live = n_edges if blocked else None
+    g_edges = g.float()[d.long()]
+    _assert_k1_close(dx.cpu(), _f64_sum(g_edges, src, n_x, w.detach() if weighted else None, live).to(dtype))
+    if weighted:
+        ref = (x.detach()[src.long()].float() * g_edges).sum(dim=1)
+        if blocked:
+            ref[n_edges:] = 0.0
+        assert dw.dtype == torch.float32
+        assert float((dw - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+        if blocked:
+            assert float(dw[n_edges:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("model,expected", [
+    ("graphsage", {"scatter_sum_sorted": 3, "segment_expand_sorted": 3,
+                   "gather_rows_banded": 3, "pallas_gather_scatter_sum": 3}),
+    ("gat", {"scatter_sum_sorted": 5, "segment_expand_sorted": 5,
+             "gather_rows_banded": 3, "pallas_gather_scatter_sum": 3}),
+])
+def test_train_gradients_on_card_match_cpu(dev, model, expected):
+    """One forward and backward of the train loss on the card (kernels)
+    against the CPU (plain versions), both models with the banded src
+    gather (K3 in each layer and the edge head): the launches of each pass
+    counted (K1's backward a K2, K2's a K1, K3's a K4), every gradient finite and
+    within 2^-4 of its param's largest gradient (bf16 matmuls differ
+    between the devices' libraries, and an ulp apart in an activation
+    carries through the backward)."""
+    from alaz_tpu_torch.config import ModelConfig
+    from alaz_tpu_torch.convert import graph_to_torch
+    from alaz_tpu_torch.models.registry import init_params
+    from alaz_tpu_torch.replay.synth import example_batch
+    from alaz_tpu_torch.train.trainstep import backward, make_loss_fn
+
+    cfg = ModelConfig(model=model, src_gather="banded")
+    batch = example_batch(n_pods=900, n_svcs=100, n_edges=4000, seed=0, structure="community", layout="clustered")
+    label = np.zeros(batch.e_pad, np.float32)
+    label[: batch.n_edges] = batch.edge_feats[: batch.n_edges, 0] > 1.5
+    grads = {}
+    for where in ("cpu", dev):
+        params = init_params(cfg, key=0, device=where)
+        K.reset_launch_counts()
+        loss = make_loss_fn(cfg)(params, graph_to_torch(batch.device_arrays(), where),
+                                 torch.as_tensor(label, device=where))
+        backward(params, loss)
+        if where == dev:
+            torch.cuda.synchronize()
+            assert K.launch_counts() == expected
+        grads[str(where)] = {k: p.grad.float().cpu() for k, p in params.named_parameters()}
+    for k, ref in grads["cpu"].items():
+        got = grads[str(dev)][k]
+        assert bool(torch.isfinite(got).all()), k
+        assert float((got - ref).abs().max()) <= 2.0**-4 * max(float(ref.abs().max()), 1e-30), k

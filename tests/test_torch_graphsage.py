@@ -31,7 +31,7 @@ from alaz_tpu.config import ModelConfig as JaxConfig
 from alaz_tpu.models import graphsage as jsage
 from alaz_tpu_torch.config import ModelConfig
 from alaz_tpu_torch.convert import graph_to_torch, params_from_jax, params_to_numpy
-from alaz_tpu_torch.models import gat, graphsage, registry
+from alaz_tpu_torch.models import experts, gat, graphsage, registry, tgn
 from alaz_tpu_torch.replay.synth import example_batch
 
 SPEC = Path(__file__).resolve().parent.parent / "resources" / "specs" / "graphsage_256x1024.json"
@@ -143,10 +143,12 @@ def test_blocked_config_without_extents_raises(batch):
 
 
 def test_registry():
+    """Every family of the JAX package's registry is ported: the registry
+    returns each one's init and apply, and an unknown name raises."""
     assert registry.get_model("graphsage") == (graphsage.init, graphsage.apply)
     assert registry.get_model("gat") == (gat.init, gat.apply)
-    for name in ("tgn", "experts"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            registry.get_model(name)
+    assert registry.get_model("tgn") == (tgn.init, tgn.apply)
+    assert registry.get_model("experts") == (experts.init, experts.apply)
+    assert registry.REGISTERED_MODELS == ("graphsage", "gat", "tgn", "experts")
     with pytest.raises(ValueError, match="unknown model"):
         registry.get_model("gcn")

@@ -360,16 +360,31 @@ def test_scatter_dtype_contract():
 
 
 def test_kernels_are_forward_only():
+    """The kernels are not forward only: each wrapper gives a gradient
+    (its ``torch.autograd.Function``), for the weights of K4 too, and still
+    runs under ``no_grad``. Each gradient here is a sum of ones, so it is
+    exact in f32 and held bit for bit: ``msgs`` gets one per edge, ``v``
+    through the gathers the count of its rows' uses, K4's ``w`` the row
+    sums of ``x[src]``."""
     msgs, dst, _ = _inputs(10)
-    m = _to_t(msgs).requires_grad_()
     d = _to_t(dst)
-    for call in (
-        lambda: K.scatter_sum_sorted(m, d, N_PAD),
-        lambda: K.gather_rows_banded(m, d, E_PAD),
-        lambda: K.pallas_gather_scatter_sum(m, d, d, N_PAD),
-        lambda: K.pallas_gather_scatter_sum(m.detach(), d, d, N_PAD, torch.ones(E_PAD, requires_grad=True)),
-    ):
-        with pytest.raises(NotImplementedError, match="forward only"):
-            call()
+    x = _to_t(msgs[:N_PAD])
+    w = torch.ones(E_PAD, requires_grad=True)
+    cases = (
+        ("scatter_sum_sorted", lambda t: K.scatter_sum_sorted(t, d, N_PAD), _to_t(msgs),
+         lambda: torch.ones(E_PAD, 32)),
+        ("segment_expand_sorted", lambda t: K.segment_expand_sorted(t, d, N_PAD), x,
+         lambda: torch.bincount(d.long(), minlength=N_PAD).float()[:, None].expand(N_PAD, 32)),
+        ("gather_rows_banded", lambda t: K.gather_rows_banded(t, d, N_PAD), x,
+         lambda: torch.bincount(d.long(), minlength=N_PAD).float()[:, None].expand(N_PAD, 32)),
+        ("pallas_gather_scatter_sum", lambda t: K.pallas_gather_scatter_sum(t, d, d, N_PAD, w), x,
+         lambda: torch.bincount(d.long(), minlength=N_PAD).float()[:, None].expand(N_PAD, 32)),
+    )
+    for name, call, leaf, want in cases:
+        t = leaf.clone().requires_grad_()
+        call(t).sum().backward()
+        assert torch.equal(t.grad, want()), name
         with torch.no_grad():
-            call()
+            out = call(t)
+        assert not out.requires_grad, name
+    assert torch.equal(w.grad, x[d.long()].sum(1))
