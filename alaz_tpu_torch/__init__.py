@@ -14,8 +14,16 @@ the same way so each module has an obvious twin:
 - ``alaz_tpu_torch.train``    — objective, train and score steps, AUROC,
   checkpoints
 - ``alaz_tpu_torch.runtime``  — ``WindowScorer``, the serial scoring loop
-  (it owns the TGN memory)
+  (it owns the TGN memory); the streaming ``Service`` (serial and grouped
+  scoring through the kernels), its metrics, tenancy partitions and
+  debug HTTP server
 - ``alaz_tpu_torch.convert``  — params and graphs carried in from numpy
+- ``python -m alaz_tpu_torch serve`` — the service over replayed traffic
+
+The host plane the service runs on is the JAX package's, copied:
+``events``, ``protocols``, ``utils``, ``logging``, ``datastore``,
+``aggregator``, ``graph.builder``, ``config``, ``obs``, ``replay.simulator``
+and ``sources``.
 
 The package imports torch and numpy only. Entry points take ``device=``;
 with none given they run on ``cuda`` and raise when there is no card.

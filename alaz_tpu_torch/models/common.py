@@ -99,21 +99,54 @@ def znorm_edge_feats(
     eps: float = 1e-8,
     clip: float = 8.0,
 ) -> torch.Tensor:
-    """[E, F] → [E, F + EDGE_STAT_COLS]: append per-window z-scores of
-    the stat columns, each edge measured against the window's fleet
-    baseline. Stats accumulate in f32 whatever the feature dtype; z of
-    padded edges is forced to 0."""
-    m = edge_mask.float()[:, None]
-    stats = ef[:, :EDGE_STAT_COLS].float()
-    cnt = m.sum()
-    s1 = (stats * m).sum(0)
-    s2 = (stats * stats * m).sum(0)
+    """[..., E, F] → [..., E, F + EDGE_STAT_COLS]: append per-window
+    z-scores of the stat columns, each edge measured against its window's
+    fleet baseline (a leading axis holds stacked windows, each normed on
+    its own, as ``jax.vmap`` of the single-window form would). Stats
+    accumulate in f32 whatever the feature dtype; z of padded edges is
+    forced to 0."""
+    m = edge_mask.float()[..., None]
+    stats = ef[..., :EDGE_STAT_COLS].float()
+    cnt = m.sum(-2, keepdim=True)
+    s1 = (stats * m).sum(-2, keepdim=True)
+    s2 = (stats * stats * m).sum(-2, keepdim=True)
     cnt = torch.clamp(cnt, min=1.0)
     mean = s1 / cnt
     var = torch.clamp(s2 / cnt - mean * mean, min=0.0)
     z = (stats - mean) * torch.rsqrt(var + eps)
     z = torch.clamp(z, -clip, clip) * m
-    return torch.cat([ef, z.to(ef.dtype)], dim=1)
+    return torch.cat([ef, z.to(ef.dtype)], dim=-1)
+
+
+def group_graph(stacked: dict, cfg: ModelConfig) -> dict:
+    """W windows of one bucket, stacked on a leading axis (``[W, ...]``
+    tensors of ``GraphBatch.device_arrays``), as ONE block-diagonal graph
+    whose forward gives each window what its own forward gives: node ids
+    of window w are offset by w·n_pad, so every window's dst order stays
+    sorted across the stack and each kernel runs once for the group. The
+    window-global operations keep per-window semantics: the edge-stat
+    z-norm runs here per window (the model then sees the widened features
+    and skips its own), the blocked extents of window w are offset by
+    w·E_pad (window w's pad edges, masked, fall in its last dst block, as
+    COO's sorted runs hold them), and ``windows`` ([W]) tells the model
+    how many windows the edge axis holds (GAT's saturation gauge is per
+    window)."""
+    w, n_pad = stacked["node_feats"].shape[:2]
+    e_pad = stacked["edge_src"].shape[1]
+    dev = stacked["edge_src"].device
+    windows = torch.arange(w, device=dev, dtype=torch.int32)
+    out = {"windows": windows}
+    for k, v in stacked.items():
+        if k in ("edge_src", "edge_dst"):
+            out[k] = (v + (windows * n_pad)[:, None]).reshape(-1)
+        elif k == "edge_block_starts":
+            starts = v + (windows * e_pad)[:, None]
+            out[k] = torch.cat([starts[:, :-1].reshape(-1), starts[-1, -1:]])
+        elif k == "edge_feats" and cfg.edge_feat_znorm:
+            out[k] = znorm_edge_feats(v, stacked["edge_mask"]).reshape(w * e_pad, -1)
+        else:
+            out[k] = v.reshape(w * v.shape[1], *v.shape[2:])
+    return out
 
 
 def maybe_znorm_graph(graph: dict, cfg: ModelConfig) -> dict:

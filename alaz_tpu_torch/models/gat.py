@@ -96,7 +96,8 @@ def apply(params: GAT, graph: dict, cfg: ModelConfig) -> dict:
     """Forward pass over a graph of tensors (``convert.graph_to_torch``).
     Returns ``node_h``, ``edge_logits``, ``node_logits`` and
     ``attn_clamp_saturation``: the largest, over layers, fraction of live
-    attention logits at or past the ±30 clamp."""
+    attention logits at or past the ±30 clamp; over a stacked group
+    (``common.group_graph``) one such fraction a window, ``[W]``."""
     dtype = compute_dtype(cfg)
     graph = maybe_znorm_graph(graph, cfg)
     n = graph["node_feats"].shape[0]
@@ -110,7 +111,8 @@ def apply(params: GAT, graph: dict, cfg: ModelConfig) -> dict:
     h = dense(params.embed, graph["node_feats"].to(dtype)).float() * node_mask
     ef = graph["edge_feats"].to(dtype)
     block_starts = graph_block_starts(graph, cfg)
-    live = edge_mask.float().sum()
+    n_windows = graph["windows"].shape[0] if "windows" in graph else None
+    live = edge_mask.float().sum() if n_windows is None else edge_mask.float().reshape(n_windows, -1).sum(1)
 
     def layer_fn(layer, h32):
         hc = h32.to(dtype)
@@ -136,7 +138,11 @@ def apply(params: GAT, graph: dict, cfg: ModelConfig) -> dict:
         # clamp, which the fixed clamp (in place of a per-segment max)
         # would otherwise hide
         hit = (logits.abs() >= ATTENTION_LOGIT_CLAMP) & edge_mask[:, None]
-        sat = hit.float().sum() / torch.clamp(live * nh, min=1.0)
+        if n_windows is None:
+            sat = hit.float().sum() / torch.clamp(live * nh, min=1.0)
+        else:  # a stacked group (common.group_graph): one fraction a window
+            hits = hit.float().sum(1).reshape(n_windows, -1).sum(1)
+            sat = hits / torch.clamp(live * nh, min=1.0)
         logits = torch.clamp(logits, -ATTENTION_LOGIT_CLAMP, ATTENTION_LOGIT_CLAMP)
         w = torch.where(edge_mask[:, None], torch.exp(logits), 0.0)  # [E, nh] f32
         msgs = ((kv_src + e_feat) * w[:, :, None].to(dtype)).reshape(-1, nh * hd)
@@ -168,5 +174,5 @@ def apply(params: GAT, graph: dict, cfg: ModelConfig) -> dict:
         "node_h": h,
         "edge_logits": edge_logits.float(),
         "node_logits": node_logits.float(),
-        "attn_clamp_saturation": torch.stack(sats).max(),
+        "attn_clamp_saturation": torch.stack(sats).amax(0),
     }

@@ -1,1 +1,2 @@
-"""Replay inputs: synthetic service-map windows."""
+"""Replay inputs: synthetic service-map windows and the traffic
+``Simulator``."""

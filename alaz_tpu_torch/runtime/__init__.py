@@ -1,1 +1,2 @@
-"""The scoring runtime: ``WindowScorer``."""
+"""The scoring runtime: ``WindowScorer``, the streaming ``Service``, its
+metrics registry, tenancy partitions and debug HTTP server."""

@@ -43,6 +43,22 @@ Phases, each raising on failure:
                 131,072 rows by the first; launch counts; scores and the
                 final memory held against the same stream on the plain
                 versions;
+   serve     -- the streaming ``Service`` on the card over each test
+                config's replayed traffic, testDuration cut to 3.1 s
+                (hidden 128, 2 layers, bf16, kernels on, window 1 s):
+                GraphSAGE on config5 (100,000 pods, 40,000 edges at 25
+                req/s), GAT banded, renumbered and blocked, and the
+                experts on config3, TGN on config4; traffic in flat out
+                through the ingestion surface (nothing shed), every closed
+                window scored, no worker exception, the kernels' launches
+                per dispatch; each run's windows scored again under the
+                plain versions; GraphSAGE's windows, three times over, as a backlog at
+                ``score_batch_windows=4`` (the group path) against its
+                serial scores; close → score latency, edges/s, arenas,
+                peak memory, and the same windows through
+                ``WindowScorer``;
+   serve cli -- ``python -m alaz_tpu_torch serve --flat-out --ckpt`` over
+                config4's traffic;
 6. op path   -- the public ``ops.gather_scatter_sum`` (K4) over the GAT
                 windows' edges, launch counts read around those calls;
    train     -- GraphSAGE (uniform window), GAT banded (clustered window)
@@ -70,11 +86,13 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -638,6 +656,291 @@ def phase_tgn_slice(batches, device: str = "cuda") -> tuple:
         out["max_memory_allocated_bytes"] = peak_bytes
     emit("tgn_slice", out)
     return out, scorer
+
+
+# -- the serving phase --------------------------------------------------------
+
+# testDuration cut: four one-second windows a run, the last a tenth full
+# (every edge still live in it); the copied Python aggregator takes
+# ~11,000 (config5) to ~67,000 (config4) events/s on the card's host
+SERVE_DURATION_S = 3.1
+SERVE_RUNS = (
+    # family, replay config, ModelConfig and RuntimeConfig settings
+    ("graphsage", "testconfig/config5_fleet_100k.json", {}, {}),
+    ("gat", "testconfig/config3_10k_mixed.json",
+     {"model": "gat", "src_gather": "banded", "edge_layout": "blocked"},
+     {"renumber_nodes": True, "edge_layout": "blocked"}),
+    ("experts", "testconfig/config3_10k_mixed.json", {"model": "experts"}, {}),
+    ("tgn", "testconfig/config4_temporal.json", {"model": "tgn"}, {}),
+)
+# K1, K2 and K3 launches of one score dispatch: a window, or a group as one
+SERVE_LAUNCHES = {"graphsage": (2, 1, 0), "gat": (2, 3, 3), "experts": (2, 1, 0), "tgn": (2, 1, 0)}
+
+
+def _replay_config(path: str):
+    """The replay config with its testDuration cut to SERVE_DURATION_S and
+    nothing else changed. Returns (SimulationConfig, the file's duration)."""
+    from alaz_tpu_torch.config import SimulationConfig
+
+    with open(path) as f:
+        raw = json.load(f)
+    return SimulationConfig.from_json(dict(raw, testDuration=SERVE_DURATION_S)), raw["testDuration"]
+
+
+def _submit(submit, queue, batch, rows: int) -> None:
+    """Hand ``batch`` to the service's ``submit`` once ``queue`` has room
+    for its rows: flat out, as fast as the service takes traffic, and
+    nothing shed at the queue's mouth."""
+    while queue.pending_events + rows > queue.capacity:
+        time.sleep(0.001)
+    require(submit(batch), f"{queue.name}: rows shed at the mouth")
+
+
+def _replay(svc, sim) -> tuple:
+    """The replay source's traffic through the service's ingestion
+    surface, in a live node's order: the K8s metadata and the TCP
+    establishes first (drained, so every connection is joined), then the
+    L7 traffic flat out. Returns (events, seconds from the first L7 batch
+    until every closed window was scored)."""
+    for m in sim.setup():
+        _submit(svc.submit_k8s, svc.k8s_queue, m, 1)
+    tcp = sim.tcp_events()
+    _submit(svc.submit_tcp, svc.tcp_queue, tcp, tcp.shape[0])
+    svc.drain(300)
+    events, t0 = 0, time.perf_counter()
+    for batch in sim.iter_l7_batches():
+        _submit(svc.submit_l7, svc.l7_queue, batch, batch.shape[0])
+        events += batch.shape[0]
+    svc.drain(600)
+    svc.flush_windows()
+    svc.drain(600)
+    return events, time.perf_counter() - t0
+
+
+def _serve_once(cfg, params, sim_cfg=None, backlog=None, device: str = "cuda") -> dict:
+    """One run of the streaming Service on the card: replayed traffic
+    through ingest → aggregator → window close → scorer (``sim_cfg``,
+    flat out), or the closed windows of an earlier run handed to the
+    window close callback before the workers start, so the scorer finds
+    them as a backlog (``backlog``). Launch counts and peak memory are
+    read around exactly this run; a worker thread that raises fails the
+    phase."""
+    from alaz_tpu_torch.events.intern import Interner
+    from alaz_tpu_torch.ops import segment_kernels as K
+    from alaz_tpu_torch.replay.simulator import Simulator
+    from alaz_tpu_torch.runtime.service import Service
+
+    interner = Interner()
+    sunk, windows, latency = [], [], []
+    svc = Service(config=cfg, interner=interner, score_sink=sunk.append,
+                  model_state=params, score_threshold=0.0, device=device)
+    on_card = svc.torch_device.type == "cuda"
+    svc.score_observer = lambda batch, tenant, lat: (windows.append(batch), latency.append(lat))
+    raised, hook = [], threading.excepthook
+    threading.excepthook = raised.append
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    events = 0
+    t0 = time.perf_counter()
+    try:
+        if backlog is not None:
+            for b in backlog:
+                svc.graph_store.on_batch(b)
+        svc.start()
+        if sim_cfg is not None:
+            events, wall = _replay(svc, Simulator(sim_cfg, interner=interner))
+        else:
+            svc.drain(300)
+            wall = time.perf_counter() - t0
+    finally:
+        svc.stop()
+        threading.excepthook = hook
+    if on_card:
+        torch.cuda.synchronize()
+    launches = K.launch_counts()
+    require(raised == [], f"a worker thread raised: {[(a.thread.name, repr(a.exc_value)) for a in raised]}")
+    closed = svc.metrics.counter("windows.closed").value
+    require(svc.scored_batches == closed == len(sunk) == len(windows),
+            f"scored {svc.scored_batches} of {closed} closed windows, {len(sunk)} sunk")
+    for b, sb in zip(windows, sunk):
+        s = sb.score
+        require(sb.window_start_ms == b.window_start_ms and s.shape == (b.n_edges,)
+                and bool(np.isfinite(s).all()) and bool(((s >= 0) & (s <= 1)).all()),
+                f"window {b.window_start_ms}: scores not finite in [0, 1]")
+    snap = svc.metrics.snapshot()
+    lat = np.array(latency)
+    return {
+        "svc": svc, "windows": windows, "scores": {sb.window_start_ms: sb.score for sb in sunk},
+        "summary": {
+            "windows_closed": closed,
+            "windows_scored": svc.scored_batches,
+            "score_dispatches": svc.score_dispatches,
+            "buckets": sorted({b.bucket_key for b in windows}),
+            "edges_per_window": [b.n_edges for b in windows],
+            "events": events,
+            "wall_s": wall,
+            "events_per_s": events / wall,
+            "ledger": svc.ledger.snapshot(),
+            "close_to_score_s": {"p50": float(np.percentile(lat, 50)), "p99": float(np.percentile(lat, 99)),
+                                 "max": float(lat.max())},
+            "latency_histograms": {k: v for k, v in snap.items() if k.startswith("latency.")
+                                   and k.endswith((".p50", ".p99")) and ".n" not in k},
+            "edges_scored": svc.scored_edges,
+            "edges_per_s_wall": svc.scored_edges / wall,
+            "scorer_busy_s": svc._scorer_busy_s,
+            "edges_per_s_scorer_busy": svc.scored_edges / max(svc._scorer_busy_s, 1e-9),
+            "scorer_duty_cycle_pct": 100.0 * svc._scorer_busy_s / wall,
+            "group_arenas": {"fills": svc._stage_arenas.fills, "reuses": svc._stage_arenas.reuses,
+                             "pinned": svc._stage_arenas.pin},
+            "serial_arenas": {"fills": svc._serial_arenas.fills, "reuses": svc._serial_arenas.reuses,
+                              "pinned": svc._serial_arenas.pin},
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated() if on_card else None,
+            "launches": launches,
+        },
+    }
+
+
+def _require_launches(family: str, run: dict) -> None:
+    if not run["svc"].torch_device.type == "cuda":
+        return
+    k1, k2, k3 = SERVE_LAUNCHES[family]
+    d = run["summary"]["score_dispatches"]
+    require(run["summary"]["launches"] == _counts(k1 * d, k2 * d, k3 * d, 0),
+            f"serve {family}: launches {run['summary']['launches']} for {d} dispatches, "
+            f"expected K1 {k1}, K2 {k2}, K3 {k3} a dispatch")
+
+
+def _scores_agree(tag: str, got: dict, ref: dict) -> dict:
+    """Per-window scores of two runs over the same windows, at a quarter of
+    four bf16 ulps of the largest logit (2^-8 of it: sigmoid's slope is
+    at most 1/4), the bound the slice phases hold logits to."""
+    require(set(got) == set(ref), f"{tag}: the runs scored different windows")
+    worst = {"max_abs_err": 0.0, "bound": float("inf")}
+    for k, r in ref.items():
+        err, bound = float(np.abs(got[k] - r).max()), 0.25 * 2.0**-6 * _logit_scale(r)
+        require(err <= bound, f"{tag}: window {k} differs by {err} > {bound}")
+        if err - bound > worst["max_abs_err"] - worst["bound"]:
+            worst = {"max_abs_err": err, "bound": bound}
+    return worst
+
+
+def _window_scorer_times(cfg, params, windows, device: str = "cuda") -> dict:
+    """The same windows through ``WindowScorer`` (pageable copy, serial),
+    in order (TGN threads its memory), for comparison with the Service."""
+    from alaz_tpu_torch.runtime.scorer import WindowScorer
+
+    scorer = WindowScorer(cfg, params, device=device)
+    times = []
+    for b in windows:
+        t0 = time.perf_counter()
+        scorer.score(b)
+        times.append(time.perf_counter() - t0)
+    edges = sum(b.n_edges for b in windows[1:]) or 1
+    return {"score_s": times, "score_s_median_after_first": statistics.median(times[1:]),
+            "edges_per_s_after_first": edges / sum(times[1:])}
+
+
+def phase_serve(device: str = "cuda", runs=SERVE_RUNS) -> dict:
+    """The streaming Service on the card at the JAX package's widths
+    (hidden 128, 2 layers, bf16, kernels on, params from seed 0),
+    ``window_s`` 1.0, flat-out replay of each run's test config with its
+    testDuration cut to SERVE_DURATION_S. Each run: windows scored equal
+    windows closed, no worker exception, scores finite in [0, 1], the
+    kernels' launches per dispatch; then the same windows re-scored by the
+    Service under the plain versions, scores held together. GraphSAGE
+    also scores the windows of its replay, three times over, as a backlog
+    at ``score_batch_windows=4`` (the group path) against its serial
+    scores.
+    Returns the launch counts of each run."""
+    from alaz_tpu_torch.config import ModelConfig, RuntimeConfig
+    from alaz_tpu_torch.graph.snapshot import pad_to_bucket
+    from alaz_tpu_torch.models.registry import init_params
+
+    launches, out = {}, {}
+    for family, path, model_kw, runtime_kw in runs:
+        sim_cfg, full_s = _replay_config(path)
+        if family == "tgn":  # the memory presized to the largest bucket this fleet can reach
+            model_kw = dict(model_kw, tgn_max_nodes=pad_to_bucket(sim_cfg.pod_count + sim_cfg.service_count))
+        mcfg = ModelConfig(**model_kw)
+        require((mcfg.hidden_dim, mcfg.num_layers, mcfg.dtype, mcfg.use_pallas) == (128, 2, "bfloat16", True),
+                f"unexpected ModelConfig {mcfg}")
+        cfg = RuntimeConfig(model=mcfg, window_s=1.0, score_batch_windows=1, **runtime_kw)
+        params = init_params(mcfg, key=0, device=device)
+        run = _serve_once(cfg, params, sim_cfg=sim_cfg, device=device)
+        require(run["summary"]["windows_scored"] >= 4, f"serve {family}: fewer than 4 windows")
+        _require_launches(family, run)
+        launches[f"serve_{family}"] = run["summary"]["launches"]
+        with plain_kernels():
+            plain = _serve_once(cfg, params, backlog=run["windows"], device=device)
+        entry = {
+            "replay": {"config": path, "testDuration_s": [full_s, SERVE_DURATION_S],
+                       "pods": sim_cfg.pod_count, "services": sim_cfg.service_count,
+                       "edges": sim_cfg.edge_count, "rate_per_edge": sim_cfg.edge_rate},
+            "model": {k: getattr(mcfg, k) for k in ("model", "src_gather", "edge_layout", "tgn_max_nodes")},
+            "renumber_nodes": cfg.renumber_nodes,
+            "serial": run["summary"],
+            "vs_plain_versions": _scores_agree(f"serve {family} vs plain", run["scores"], plain["scores"]),
+        }
+        if family == "graphsage":
+            # the windows three times over: three groups of 4, the third
+            # through the first group's pinned buffer again
+            backlog = run["windows"] * 3
+            gcfg = dataclasses.replace(cfg, score_batch_windows=4)
+            group = _serve_once(gcfg, params, backlog=backlog, device=device)
+            gs = group["summary"]
+            require(gs["score_dispatches"] == len(backlog) // 4, f"serve graphsage: groups {gs['score_dispatches']}")
+            require(gs["group_arenas"]["reuses"] >= 1, "serve graphsage: no group arena reused")
+            _require_launches(family, group)
+            launches["serve_graphsage_groups"] = gs["launches"]
+            with plain_kernels():
+                gplain = _serve_once(gcfg, params, backlog=backlog, device=device)
+            entry["group_w4_backlog"] = group["summary"]
+            entry["group_vs_serial"] = _scores_agree("serve graphsage groups vs serial", group["scores"], run["scores"])
+            entry["group_vs_plain_versions"] = _scores_agree("serve graphsage groups vs plain", group["scores"],
+                                                             gplain["scores"])
+        entry["window_scorer"] = _window_scorer_times(mcfg, params, run["windows"], device)
+        out[family] = entry
+        emit(f"serve_{family}", entry)
+        del run, plain
+    return launches
+
+
+def phase_serve_cli() -> dict:
+    """``python -m alaz_tpu_torch serve --flat-out --ckpt`` as a user runs
+    it, with the default queues: a checkpoint of GraphSAGE's seed-0
+    params, config4's traffic with testDuration cut, the CLI's summary
+    line read back (events lost to the queues' mouths included)."""
+    from alaz_tpu_torch.config import ModelConfig
+    from alaz_tpu_torch.models.registry import init_params
+    from alaz_tpu_torch.train import checkpoint
+
+    work = Path("build/chip_smoke")
+    work.mkdir(parents=True, exist_ok=True)
+    cfg = ModelConfig()
+    checkpoint.save(work / "ckpt", 0, init_params(cfg, key=0, device="cpu"), contract=checkpoint.feature_contract(cfg))
+    with open("testconfig/config4_temporal.json") as f:
+        raw = json.load(f)
+    traffic = work / "config4_cut.json"
+    traffic.write_text(json.dumps(dict(raw, testDuration=SERVE_DURATION_S)))
+    env = {k: v for k, v in os.environ.items() if k not in ("MODEL", "EDGE_LAYOUT", "BACKEND_HOST")}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "alaz_tpu_torch", "serve", "--config", str(traffic), "--flat-out",
+         "--ckpt", str(work / "ckpt"), "--debug-port", "0"],
+        capture_output=True, text=True, env=env, timeout=300,
+    )
+    require(proc.returncode == 0, f"serve CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    # the replay source sheds what the source queues cannot hold (drop-not-
+    # block, as in the JAX package), so a window may close with few edges
+    # or not at all; every window that closed must be scored
+    require(summary["windows_scored"] == summary["windows_closed"] >= 1 and summary["edges_scored"] > 0,
+            f"serve CLI: {summary}")
+    out = dict(summary, command_s=time.perf_counter() - t0)
+    emit("serve_cli", out)
+    return out
 
 
 # -- phase 6 ----------------------------------------------------------------
@@ -1338,6 +1641,8 @@ def main() -> int:
     gsl, gat_scorer = phase_gat_slice(gat_batches)
     esl, experts_scorer = phase_experts_slice(batches)
     tsl, tgn_scorer = phase_tgn_slice(batches)
+    serve_launches = phase_serve()
+    phase_serve_cli()
     op = phase_op_path(gat_batches)
     trains = {
         "graphsage": phase_train("train_graphsage", ModelConfig(), batches[0]),
@@ -1347,7 +1652,7 @@ def main() -> int:
     tgn_train = phase_train_tgn(batches)
     launches = {
         "graphsage": sl["launches"], "gat": gsl["launches"], "experts": esl["launches"],
-        "tgn": tsl["launches"], "gather_scatter_sum": op["launches"],
+        "tgn": tsl["launches"], "gather_scatter_sum": op["launches"], **serve_launches,
         **{f"train_{m}": t["launches_forward_backward"] for m, t in trains.items()},
         "train_tgn_unrolled": tgn_train["launches"],
     }

@@ -504,3 +504,79 @@ def test_train_gradients_on_card_match_cpu(dev, model, expected):
         got = grads[str(dev)][k]
         assert bool(torch.isfinite(got).all()), k
         assert float((got - ref).abs().max()) <= 2.0**-4 * max(float(ref.abs().max()), 1e-30), k
+
+
+# -- the streaming Service's group path on the card ---------------------------
+
+_CARD_SIM = dict(pod_count=600, service_count=100, edge_count=400, edge_rate=20, seed=5)
+
+
+def _card_serve(layout: str, batch_windows: int, duration_s: float):
+    """The Service on the card over replayed traffic ingested on this
+    thread before the workers start, so every closed window waits as a
+    backlog: ``score_batch_windows`` > 1 groups it. f32, so group and
+    serial differ only in the order of f32 sums. Returns (service, score
+    map, launch counts, worker exceptions)."""
+    import threading
+
+    from alaz_tpu_torch.config import ModelConfig, RuntimeConfig, SimulationConfig
+    from alaz_tpu_torch.events.intern import Interner
+    from alaz_tpu_torch.models.registry import init_params
+    from alaz_tpu_torch.replay.simulator import Simulator
+    from alaz_tpu_torch.runtime.service import Service
+
+    cfg = RuntimeConfig(model=ModelConfig(dtype="float32", edge_layout=layout),
+                        score_batch_windows=batch_windows, edge_layout=layout)
+    interner, records, raised = Interner(), [], []
+    svc = Service(config=cfg, interner=interner, score_sink=records.extend,
+                  model_state=init_params(cfg.model, key=0, device="cuda"),
+                  score_threshold=0.0, device="cuda")
+    sim = Simulator(SimulationConfig(test_duration_s=duration_s, **_CARD_SIM), interner=interner)
+    for m in sim.setup():
+        svc.aggregator.process_k8s(m)
+    svc.aggregator.process_tcp(sim.tcp_events())
+    for b in sim.iter_l7_batches():
+        svc.aggregator.process_l7(b)
+    svc.flush_windows()
+    hook, threading.excepthook = threading.excepthook, raised.append
+    K.reset_launch_counts()
+    try:
+        svc.start()
+        svc.drain(timeout_s=120)
+        svc.stop()
+    finally:
+        threading.excepthook = hook
+    scores = {(r.window_start_ms, r.from_uid, r.to_uid, r.protocol): r.score for r in records}
+    return svc, scores, K.launch_counts(), raised
+
+
+@pytest.mark.parametrize("layout,batch_windows,duration_s,dispatches", [
+    ("coo", 4, 3.0, 1),      # W=3, padded to 4 by repeating the last window
+    ("blocked", 4, 4.0, 1),  # a blocked-layout group of 4
+    ("coo", 4, 5.0, 2),      # a ragged backlog: a group of 4, then one window serially
+    ("coo", 2, 6.0, 3),      # three groups of 2: the first arena's buffer comes around again
+])
+def test_service_group_path_matches_serial_on_card(dev, layout, batch_windows, duration_s, dispatches):
+    """The group path's block-diagonal stack through K1 and K2 on the card
+    against the serial path on the same windows, scores within the f32
+    oracle's 1e-4. Groups staged back to back go through the two pinned
+    buffers of one arena key in turn; a buffer overwritten while its copy
+    to the card was in flight would give its group another window's
+    scores. Each dispatch launches K1 twice (GraphSAGE's two layers) and
+    K2 once (the edge head), a group as one window."""
+    n_windows = int(duration_s)
+    gsvc, group, glaunch, graised = _card_serve(layout, batch_windows, duration_s)
+    ssvc, serial, slaunch, sraised = _card_serve(layout, 1, duration_s)
+    assert graised == [] and sraised == []
+    assert gsvc.scored_batches == ssvc.scored_batches == n_windows
+    assert gsvc.metrics.counter("windows.closed").value == n_windows
+    assert gsvc.score_dispatches == dispatches and ssvc.score_dispatches == n_windows
+    assert gsvc._stage_arenas.pin
+    if batch_windows == 2:
+        assert (gsvc._stage_arenas.fills, gsvc._stage_arenas.reuses) == (3, 1)
+    for svc, launches in ((gsvc, glaunch), (ssvc, slaunch)):
+        assert launches["scatter_sum_sorted"] == 2 * svc.score_dispatches
+        assert launches["segment_expand_sorted"] == svc.score_dispatches
+    assert serial and set(group) == set(serial)
+    keys = sorted(serial)
+    np.testing.assert_allclose([group[k] for k in keys], [serial[k] for k in keys], rtol=1e-4, atol=1e-4)
