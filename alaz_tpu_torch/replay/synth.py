@@ -1,4 +1,6 @@
-"""Synthetic service-map windows, drawn from a seed.
+"""Synthetic service-map windows, drawn from a seed, and the host-ingest
+trace of the JAX package's ``replay/synth.py make_ingest_trace`` (copied:
+the chaos harness drives it).
 
 The same draws, in the same order, as the JAX package's
 ``__graft_entry__._example_batch``, so both packages score bit-identical
@@ -82,3 +84,86 @@ def example_batch(
         edge_type=edge_type,
         edge_feats=edge_feats,
     )
+
+
+def make_ingest_trace(
+    n_rows: int,
+    pods: int = 500,
+    svcs: int = 50,
+    outbound_ips: int = 200,
+    paths: int = 64,
+    windows: int = 8,
+    seed: int = 0,
+):
+    """Synthetic L7 trace for the host-ingest microbench: V2 events with
+    embedded addresses (pod sources; half service, half outbound
+    destinations) and a bounded set of unique HTTP payloads.
+
+    Returns (events, cluster_msgs): feed the msgs into a ClusterInfo and
+    the events through Aggregator.process_l7. Every event attributes
+    (all sources are known pods), so downstream row-conservation checks
+    can equate pushed rows with emitted + ledgered rows.
+    """
+    import numpy as np
+
+    from alaz_tpu_torch.events.k8s import EventType, K8sResourceMessage, Pod, ResourceType, Service
+    from alaz_tpu_torch.events.net import ip_to_u32
+    from alaz_tpu_torch.events.schema import HttpMethod, L7Protocol, make_l7_events
+
+    rng = np.random.default_rng(seed)
+    msgs = []
+    pod_ips = np.empty(pods, dtype=np.uint32)
+    for p in range(pods):
+        ip = f"10.{(p >> 16) & 0xFF}.{(p >> 8) & 0xFF}.{p & 0xFF}"
+        pod_ips[p] = ip_to_u32(ip)
+        msgs.append(
+            K8sResourceMessage(
+                ResourceType.POD, EventType.ADD, Pod(uid=f"pod-{p}", name=f"p{p}", ip=ip)
+            )
+        )
+    svc_ips = np.empty(svcs, dtype=np.uint32)
+    for s in range(svcs):
+        ip = f"10.96.{(s >> 8) & 0xFF}.{s & 0xFF}"
+        svc_ips[s] = ip_to_u32(ip)
+        msgs.append(
+            K8sResourceMessage(
+                ResourceType.SERVICE, EventType.ADD,
+                Service(uid=f"svc-{s}", name=f"s{s}", cluster_ip=ip),
+            )
+        )
+    # outbound destinations: third-party IPs the cluster tables don't know
+    out_ips = (
+        np.uint32(ip_to_u32("52.0.0.1")) + rng.permutation(1 << 16)[:outbound_ips].astype(np.uint32)
+    )
+
+    ev = make_l7_events(n_rows)
+    ev["pid"] = rng.integers(1000, 1000 + pods, n_rows)
+    ev["fd"] = rng.integers(3, 500, n_rows)
+    # event time advances through `windows` one-second windows so window
+    # closes interleave with ingest (the watermark path, not just flush)
+    ev["write_time_ns"] = 1_000_000_000 + (
+        np.arange(n_rows, dtype=np.uint64) * np.uint64(windows) * np.uint64(1_000_000_000)
+    ) // np.uint64(max(n_rows, 1))
+    ev["duration_ns"] = rng.integers(10_000, 5_000_000, n_rows)
+    ev["protocol"] = L7Protocol.HTTP
+    ev["method"] = HttpMethod.GET
+    ev["status"] = np.where(rng.random(n_rows) < 0.05, 500, 200)
+    ev["saddr"] = pod_ips[rng.integers(0, pods, n_rows)]
+    ev["sport"] = rng.integers(1024, 65535, n_rows)
+    # destination mix: ~half in-cluster services, ~half outbound (the
+    # outbound half is what exercises the reverse-DNS intern path)
+    is_out = rng.random(n_rows) < 0.5
+    daddr = svc_ips[rng.integers(0, svcs, n_rows)]
+    daddr[is_out] = out_ips[rng.integers(0, outbound_ips, int(is_out.sum()))]
+    ev["daddr"] = daddr
+    ev["dport"] = np.where(is_out, 443, 80)
+    # bounded unique-payload set: the hashed-parse cache amortizes parsing,
+    # so path enrichment is per-unique, as in production
+    path_idx = rng.integers(0, paths, n_rows)
+    for p in range(paths):
+        payload = f"GET /api/v1/resource{p} HTTP/1.1\r\nHost: bench\r\n\r\n".encode()
+        rows_p = np.flatnonzero(path_idx == p)
+        buf = np.frombuffer(payload, dtype=np.uint8)
+        ev["payload"][rows_p[:, None], np.arange(buf.shape[0])[None, :]] = buf
+        ev["payload_size"][rows_p] = len(payload)
+    return ev, msgs

@@ -135,19 +135,66 @@ class TenantPartition:
         if use_native_ingest:
             raise ValueError(
                 "use_native_ingest: the C++ window accumulator is not ported "
-                "to alaz_tpu_torch yet (ROADMAP §1, native, sharded and "
-                "process ingest)"
+                "to alaz_tpu_torch yet (ROADMAP §1 item 3, native, sharded "
+                "and process ingest)"
             )
         if self.graph_store is None and (
             ingest_workers > 1 or ingest_backend == "process"
         ):
-            raise ValueError(
-                f"ingest_workers={ingest_workers}, ingest_backend="
-                f"{ingest_backend!r}: sharded and process ingest are not "
-                "ported to alaz_tpu_torch yet (ROADMAP §1, native, sharded "
-                "and process ingest); run INGEST_WORKERS=1 with "
-                "INGEST_BACKEND=thread"
-            )
+            # sharded multi-worker ingest: the pipeline IS both the
+            # aggregator (ingestion surface) and the windowed store —
+            # one object plays both roles. Each tenant gets its OWN
+            # pool: shard workers, queues/rings and close waves are
+            # never shared across fleets. Backend per config:
+            # "thread" = aggregator/sharded.py over the
+            # shared interner; "process" = alaz_tpu/shm spawn workers
+            # over shared-memory rings with id-exchange at merge (the
+            # out-of-GIL path; applies even at ingest_workers == 1 so
+            # ingest leaves the serving process's GIL).
+            from alaz_tpu_torch.aggregator.sharded import ShardedIngest
+
+            # soak mode (CHAOS_ENABLED=1): per-partition injector so
+            # every tenant's pool proves its self-healing independently
+            # (tenant-offset seed: partitions draw independent streams)
+            ccfg = getattr(config, "chaos", None)
+            if ccfg is not None and ccfg.enabled:
+                from alaz_tpu_torch.chaos.injectors import WorkerChaos
+
+                self.fault_hook = WorkerChaos(
+                    seed=ccfg.seed + self.tenant,
+                    crash_prob=ccfg.worker_crash_prob,
+                    stall_prob=ccfg.worker_stall_prob,
+                    stall_s=ccfg.worker_stall_s,
+                    max_crashes=ccfg.worker_max_crashes,
+                )
+                log.warning(
+                    "chaos soak enabled: worker-seam fault injection live"
+                )
+            if ingest_backend == "process":
+                raise ValueError(
+                    "ingest_backend=process: the shared-memory process pool "
+                    "(shm/) is not ported to alaz_tpu_torch yet (ROADMAP §1 "
+                    "item 3, native, sharded and process ingest); run "
+                    "INGEST_BACKEND=thread"
+                )
+            else:
+                self.sharded = ShardedIngest(
+                    ingest_workers,
+                    interner=self.interner,
+                    config=config,
+                    window_s=config.window_s,
+                    on_batch=on_batch,
+                    renumber=renumber,
+                    tee=export_backend,
+                    ledger=self.ledger,
+                    shed_block_s=config.shed_block_s,
+                    fault_hook=self.fault_hook,
+                    degree_cap=degree_cap,
+                    sample_seed=sample_seed,
+                    tracer=self.tracer,
+                    recorder=recorder,
+                )
+            self.graph_store = self.sharded
         if self.graph_store is None:
             self.graph_store = WindowedGraphStore(
                 self.interner,

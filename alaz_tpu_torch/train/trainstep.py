@@ -7,13 +7,16 @@ optax decays every leaf, biases and layer-norm gains included, so there
 is one parameter group. Params stay f32 master weights; the models cast
 them to the compute dtype in the forward. Gradients flow through the
 hand-written kernels (``ops/segment_kernels.py``), whose backward passes
-are kernels too.
+are kernels too. A learning rate is a float or a schedule ``count -> lr``
+(``cosine_decay_schedule``, optax's), read at the update count before
+each step as optax reads it.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Iterable, List
+import math
+from typing import Callable, Iterable, List, Union
 
 import numpy as np
 import torch
@@ -34,12 +37,42 @@ class TrainState:
     step: int = 0
 
 
-def _adamw(params: torch.nn.Module, lr: float, weight_decay: float = 1e-4) -> torch.optim.AdamW:
+LearningRate = Union[float, Callable[[int], float]]
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int) -> Callable[[int], float]:
+    """``optax.cosine_decay_schedule(init_value, decay_steps)``: the rate at
+    update count ``t`` is ``init_value · ½(1 + cos(π·min(t, T)/T))``."""
+    if decay_steps <= 0:
+        raise ValueError(f"decay_steps must be positive, got {decay_steps}")
+
+    def schedule(count: int) -> float:
+        t = min(count, decay_steps)
+        return init_value * 0.5 * (1.0 + math.cos(math.pi * t / decay_steps))
+
+    return schedule
+
+
+def _lr_at(lr: LearningRate, count: int) -> float:
+    return float(lr(count)) if callable(lr) else float(lr)
+
+
+def _set_lr(optimizer: torch.optim.Optimizer, lr: LearningRate, count: int) -> None:
+    """Point every param group at the rate of update ``count``. AdamW's
+    decoupled decay is scaled by the rate, as optax's ``adamw`` scales
+    its decayed weights, so a scheduled step matches optax's."""
+    if callable(lr):
+        for group in optimizer.param_groups:
+            group["lr"] = _lr_at(lr, count)
+
+
+def _adamw(params: torch.nn.Module, lr: LearningRate, weight_decay: float = 1e-4) -> torch.optim.AdamW:
     """``optax.adamw(lr, weight_decay=1e-4)``: betas (0.9, 0.999), eps 1e-8
     after the bias-corrected square root, decoupled decay on every
-    parameter."""
+    parameter. A schedule starts at its rate for count 0."""
     return torch.optim.AdamW(
-        params.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay
+        params.parameters(), lr=_lr_at(lr, 0), betas=(0.9, 0.999), eps=1e-8,
+        weight_decay=weight_decay,
     )
 
 
@@ -101,14 +134,15 @@ def train_on_batches(
     cfg: ModelConfig,
     batches: Iterable[GraphBatch],
     epochs: int = 5,
-    lr: float = 3e-3,
+    lr: LearningRate = 3e-3,
     pos_weight: float = 10.0,
     seed: int = 0,
     device=None,
 ) -> tuple:
     """Train fresh params (from ``seed``) on the windows, ``epochs`` passes
     in order, one step a window → ``(TrainState, losses)``. The windows
-    move to the device once, in the config's edge layout."""
+    move to the device once, in the config's edge layout. ``lr`` is a
+    float or a schedule of the step count."""
     dev = resolve_device(device)
     init, _ = get_model(cfg.model)
     params = init(seed, cfg, device=dev)
@@ -121,6 +155,7 @@ def train_on_batches(
     losses: List[float] = []
     for _ in range(epochs):
         for graph, label in data:
+            _set_lr(optimizer, lr, len(losses))
             losses.append(float(step_fn(params, optimizer, graph, label)))
     return TrainState(params=params, opt_state=optimizer, step=len(losses)), losses
 
@@ -198,7 +233,7 @@ def train_tgn_unrolled(
     cfg: ModelConfig,
     batches: Iterable,
     epochs: int = 5,
-    lr: float = 3e-3,
+    lr: LearningRate = 3e-3,
     pos_weight: float = 10.0,
     seed: int = 0,
     label_attr: str = "edge_label",
@@ -208,8 +243,9 @@ def train_tgn_unrolled(
     unrolled sequences (``unrolled_loss``). ``batches`` is one window
     sequence or several, each unrolled from fresh memory; forecast
     training (``label_attr="edge_label_next"``) should use several fault
-    draws, or the model memorizes which edges ramp. Returns
-    ``(TrainState, losses)``."""
+    draws, or the model memorizes which edges ramp; it runs on
+    ``cosine_decay_schedule``. ``lr`` is a float or a schedule of the
+    update count. Returns ``(TrainState, losses)``."""
     dev = resolve_device(device)
     prepped = prep_sequences(batches, label_attr, dev)
     params = tgn.init(seed, cfg, device=dev)
@@ -221,6 +257,7 @@ def train_tgn_unrolled(
         optimizer.zero_grad(set_to_none=True)
         loss = unrolled_loss(params, prepped, memory0, cfg, pos_weight)
         backward(params, loss)
+        _set_lr(optimizer, lr, len(losses))
         optimizer.step()
         losses.append(float(loss.detach()))
     return TrainState(params=params, opt_state=optimizer, step=len(losses)), losses

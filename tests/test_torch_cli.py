@@ -1,0 +1,119 @@
+"""The port's ``python -m alaz_tpu_torch`` subcommands against the JAX
+package's ``python -m alaz_tpu``, on the CPU.
+
+Held here: ``replay``'s JSON equal but for ``events_per_s`` (a wall-clock
+rate); ``train`` and ``eval`` at small sizes (a 40-pod config, a few
+windows and epochs): the same exit codes, the same JSON keys and step
+counts, and a ``--ckpt`` written; ``train`` with no card and no
+``--device`` raises; the smoke's check of a ``train`` run against the
+same run on the plain versions (``chip_smoke._train_cli``), and that it
+catches a wrong backward. The scores themselves are held by
+``test_torch_scenario.py`` (the windows, ``_stream_tgn_eval``) and
+``test_torch_train.py`` (the steps).
+"""
+
+from __future__ import annotations
+
+import json
+
+import pytest
+import torch
+
+from alaz_tpu import __main__ as jcli
+from alaz_tpu_torch import __main__ as cli
+
+
+def test_replay_cli_matches(capsys):
+    assert jcli.main(["replay"]) == 0
+    ref = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert cli.main(["replay"]) == 0
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    ref.pop("events_per_s")
+    got.pop("events_per_s")
+    assert got == ref and ref["passed"]
+
+
+def _keys(obj):
+    """The key tree of a JSON value: dicts by key, lists by position."""
+    if isinstance(obj, dict):
+        return {k: _keys(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_keys(v) for v in obj]
+    return None
+
+
+@pytest.fixture
+def small_config(tmp_path):
+    path = tmp_path / "small.json"
+    path.write_text(json.dumps({"podCount": 40, "serviceCount": 16, "edgeCount": 30, "edgeRate": 200,
+                                "testDuration": 10}))
+    return str(path)
+
+
+@pytest.mark.parametrize("model", ["graphsage", "tgn"])
+def test_train_cli_exit_code_and_keys_match(capsys, small_config, tmp_path, model):
+    args = ["train", "--config", small_config, "--model", model, "--windows", "5", "--epochs", "6"]
+    rc_ref = jcli.main(args)
+    ref = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    rc = cli.main(args + ["--device", "cpu", "--ckpt", str(tmp_path / "ckpt")])
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == rc_ref and _keys(got) == _keys(ref)
+    assert got["steps"] == ref["steps"]
+    assert (tmp_path / "ckpt" / str(got["steps"])).is_dir()
+
+
+def test_train_cli_raises_without_a_card(small_config):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["train", "--config", small_config, "--windows", "3", "--epochs", "1"])
+
+
+def test_eval_cli_exit_code_and_keys_match(capsys, small_config):
+    args = ["eval", "--config", small_config, "--forecast-config", small_config, "--models",
+            "graphsage,experts", "--windows", "5", "--forecast-windows", "6", "--epochs", "4"]
+    rc_ref = jcli.main(args)
+    ref = json.loads(_last_json(capsys.readouterr().out))
+    rc = cli.main(args + ["--device", "cpu"])
+    got = json.loads(_last_json(capsys.readouterr().out))
+    assert rc == rc_ref and _keys(got) == _keys(ref)
+    assert got["description"].startswith("Quality gate at FULL scale: python -m alaz_tpu_torch eval")
+    for k in ("config", "n_windows", "epochs", "seed", "fault_fraction"):
+        assert got[k] == ref[k]
+    assert [r["steps"] for r in got["results"]] == [r["steps"] for r in ref["results"]]
+    assert got["forecast"]["steps"] == ref["forecast"]["steps"]
+
+
+def _last_json(out: str) -> str:
+    """The indented JSON object ``eval`` prints last."""
+    return out[out.rindex("\n{\n") + 1:] if "\n{\n" in out else out[out.index("{\n"):]
+
+
+def _smoke_train_cli(small_config, model):
+    import chip_smoke
+
+    env = {"MODEL": model, "SRC_GATHER": "banded" if model == "gat" else "xla", "EDGE_LAYOUT": "coo",
+           "USE_PALLAS": "1"}
+    argv = ["train", "--config", small_config, "--model", model, "--windows", "5", "--epochs", "6"]
+    return chip_smoke._train_cli(f"train_cli_{model}", argv, env, "cpu")
+
+
+@pytest.mark.parametrize("model", ["graphsage", "gat", "tgn"])
+def test_smoke_train_cli_holds_the_plain_run(capsys, small_config, model):
+    # on the CPU both runs take the plain versions, so they agree exactly
+    entry = _smoke_train_cli(small_config, model)
+    assert entry["exit_code"] == entry["plain"]["exit_code"]
+    assert entry["result"] == entry["plain"]["result"]
+    assert entry["losses_max_err_of_max"] == 0.0 and entry["eval_logits_max_err_of_max"] == 0.0
+    assert entry["first_update_grad_max_err_of_param_max"] == 0.0 and entry["eval_logits"] > 0
+    assert entry["steps"] == entry["result"]["steps"]
+
+
+def test_smoke_train_cli_catches_a_wrong_backward(small_config, monkeypatch):
+    # K4 runs only in K3's backward on the GAT step: halve what it returns
+    from alaz_tpu_torch.ops import segment_kernels as K
+
+    run_k4 = K._run_k4
+    monkeypatch.setattr(K, "_run_k4", lambda *a, **kw: run_k4(*a, **kw) * 0.5)
+    with pytest.raises(RuntimeError, match="first update: gradient of"):
+        _smoke_train_cli(small_config, "gat")

@@ -7,12 +7,14 @@ parsed, the copy's imports of ``alaz_tpu_torch`` are renamed back to
 reach the tree; docstrings, names, strings and every statement do. The
 only differences allowed are listed per module below:
 
-- ``raises``: a branch the port does not carry yet (native, sharded and
-  process ingest, the native L7 engine, the C++ grouping core). Its body
+- ``raises``: a branch the port does not carry yet (native and process
+  ingest, the native L7 engine, the C++ grouping core, the chaos suite's
+  frame and export legs). Its body
   in the copy must be one ``raise ValueError(...)`` naming the ROADMAP
   item that will port it; the branch's test stays as in the JAX source.
 - ``ported``: a definition written for torch or the card (the device
-  gauges, the profiler endpoints), carrying the port's own docstring, or
+  gauges, the profiler endpoints, the incident suite's detection legs
+  and CLI, which take ``device``), carrying the port's own docstring, or
   fixed (the simulator's 16-bit source ports wrap where the JAX source
   overflows under numpy 2).
 - ``dropped``: a definition with no counterpart (the XLA compile event
@@ -78,10 +80,7 @@ COPIES = {
     "runtime/tenancy.py": {
         "raises": [
             ("TenantPartition.__init__", "use_native_ingest"),
-            (
-                "TenantPartition.__init__",
-                "self.graph_store is None and (ingest_workers > 1 or ingest_backend == 'process')",
-            ),
+            ("TenantPartition.__init__", "ingest_backend == 'process'"),
         ],
     },
     "runtime/metrics.py": {
@@ -98,6 +97,25 @@ COPIES = {
     "replay/simulator.py": {"ported": {"Simulator.tcp_events"}},
     "sources/base.py": {},
     "sources/replay.py": {},
+    "aggregator/sharded.py": {},
+    "chaos/__init__.py": {},
+    "chaos/injectors.py": {},
+    "chaos/harness.py": {
+        "raises": [
+            ("_run_pipeline_leg", "backend == 'process'"),
+            ("_run_frame_leg", None),
+            ("_run_backend_leg", None),
+        ],
+    },
+    "replay/__init__.py": {},
+    "replay/faults.py": {},
+    "replay/trace.py": {},
+    "replay/scenario.py": {},
+    # the detection legs train and score on the caller's device
+    "replay/incidents.py": {"ported": {"run_detection_leg", "run_incident_scenario", "run_scenario_suite"}},
+    # --device, and --isolation (replay/tenants.py) raises
+    "replay/__main__.py": {"ported": {"main"}},
+    "train/__init__.py": {},
 }
 
 
@@ -203,17 +221,49 @@ def test_copy_equals_its_jax_source(rel):
     assert port_dump == jax_dump
 
 
+def test_make_ingest_trace_is_a_copy():
+    """``replay/synth.py`` is the port's own module; its
+    ``make_ingest_trace`` is the JAX package's, held like the copies."""
+
+    def fn_dump(path: Path) -> str:
+        tree = _Normalize({}, port=True).visit(ast.parse(path.read_text()))
+        (fn,) = [n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "make_ingest_trace"]
+        return ast.dump(fn, include_attributes=False)
+
+    assert fn_dump(REPO / "alaz_tpu_torch/replay/synth.py") == fn_dump(REPO / "alaz_tpu/replay/synth.py")
+
+
 def test_left_out_ingest_planes_raise():
+    from alaz_tpu_torch.aggregator.sharded import ShardedIngest
     from alaz_tpu_torch.config import RuntimeConfig
     from alaz_tpu_torch.runtime.tenancy import TenantPartition
 
     for kwargs, cfg in (
         ({"use_native_ingest": True}, RuntimeConfig()),
-        ({}, RuntimeConfig(ingest_workers=2)),
         ({}, RuntimeConfig(ingest_backend="process")),
+        ({}, RuntimeConfig(ingest_workers=2, ingest_backend="process")),
     ):
         with pytest.raises(ValueError, match="ROADMAP"):
             TenantPartition(0, cfg, on_batch=lambda b: None, **kwargs)
+    # the thread backend is ported: two workers build the sharded pipeline
+    part = TenantPartition(0, RuntimeConfig(ingest_workers=2), on_batch=lambda b: None)
+    try:
+        assert isinstance(part.sharded, ShardedIngest) and part.graph_store is part.sharded
+        assert part.aggregator is part.sharded and part.sharded.n == 2
+    finally:
+        part.sharded.stop()
+
+
+def test_left_out_chaos_legs_and_isolation_raise():
+    from alaz_tpu_torch.chaos.harness import run_chaos_suite
+    from alaz_tpu_torch.replay.__main__ import main as suite_main
+
+    for kwargs in ({"legs": ("frames",)}, {"legs": ("backend",)},
+                   {"legs": ("pipeline",), "ingest_backend": "process", "n_rows": 512}):
+        with pytest.raises(ValueError, match="ROADMAP"):
+            run_chaos_suite(seed=0, **kwargs)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        suite_main(["--isolation", "--no-detection"])
 
 
 def test_native_grouping_and_engine_raise():

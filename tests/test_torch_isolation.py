@@ -53,3 +53,10 @@ def test_importing_every_module_loads_no_jax():
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
     assert len(modules) > 15
+    # the labelled windows, the incident suite and the sharded ingest
+    assert {
+        "alaz_tpu_torch.replay.scenario", "alaz_tpu_torch.replay.incidents", "alaz_tpu_torch.replay.faults",
+        "alaz_tpu_torch.replay.trace", "alaz_tpu_torch.replay.__main__", "alaz_tpu_torch.aggregator.sharded",
+        "alaz_tpu_torch.chaos", "alaz_tpu_torch.chaos.harness", "alaz_tpu_torch.chaos.injectors",
+        "alaz_tpu_torch.__main__",
+    } <= set(modules)

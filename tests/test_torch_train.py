@@ -6,8 +6,9 @@ interpret mode; GraphSAGE's and GAT's one-step loss and gradients against
 ``jax.value_and_grad`` of the reference's ``edge_bce_loss(apply(...))``
 (the experts' and TGN's are in their own files); params after three
 AdamW steps against optax's ``adamw``; remat; the objective; and the
-quality gate of ``tests/test_train.py`` on the reference's
-anomaly-scenario windows.
+quality gate of ``tests/test_train.py`` on the port's own
+anomaly-scenario windows (``alaz_tpu_torch.replay.scenario``), which are
+held to the reference's bit for bit.
 
 Inputs are made with numpy from a seed and handed to both packages;
 params come from the reference's ``init``, carried across with
@@ -33,17 +34,18 @@ import torch
 
 import __graft_entry__ as jax_entry
 from alaz_tpu.config import ModelConfig as JaxConfig
-from alaz_tpu.config import SimulationConfig
+from alaz_tpu.config import SimulationConfig as JaxSimulationConfig
 from alaz_tpu.models.registry import get_model as jax_get_model
 from alaz_tpu.ops import pallas_segment as jpallas
-from alaz_tpu.replay.scenario import run_anomaly_scenario
+from alaz_tpu.replay.scenario import run_anomaly_scenario as jax_run_anomaly_scenario
 from alaz_tpu.train import metrics as jmetrics
 from alaz_tpu.train import trainstep as jtrain
 from alaz_tpu.train.objective import edge_bce_loss as jax_edge_bce_loss
-from alaz_tpu_torch.config import ModelConfig
+from alaz_tpu_torch.config import ModelConfig, SimulationConfig
 from alaz_tpu_torch.convert import graph_to_torch, params_from_jax
-from alaz_tpu_torch.graph.snapshot import GraphBatch, edge_block_starts_from
+from alaz_tpu_torch.graph.snapshot import edge_block_starts_from
 from alaz_tpu_torch.models.registry import get_model
+from alaz_tpu_torch.replay.scenario import run_anomaly_scenario
 from alaz_tpu_torch.ops import segment_kernels as K
 from alaz_tpu_torch.train import metrics, trainstep
 from alaz_tpu_torch.train.objective import edge_bce_loss
@@ -413,21 +415,28 @@ def test_train_step_takes_a_graph_made_under_inference_mode():
 # -- the quality gate --------------------------------------------------------------------
 
 
-def _port_batch(b) -> GraphBatch:
-    """The reference's numpy GraphBatch as the port's."""
-    return GraphBatch(
-        node_feats=b.node_feats, node_type=b.node_type, node_mask=b.node_mask,
-        edge_src=b.edge_src, edge_dst=b.edge_dst, edge_type=b.edge_type,
-        edge_feats=b.edge_feats, edge_mask=b.edge_mask, edge_label=b.edge_label,
-        n_nodes=b.n_nodes, n_edges=b.n_edges,
-    )
+GATE_SIM = dict(pod_count=50, service_count=20, edge_count=40, edge_rate=200)
+GATE_SCENARIO = dict(n_windows=8, fault_fraction=0.2, seed=1)
 
 
 @pytest.fixture(scope="module")
 def scenario():
-    sim_cfg = SimulationConfig(pod_count=50, service_count=20, edge_count=40, edge_rate=200)
-    data = run_anomaly_scenario(sim_cfg, n_windows=8, fault_fraction=0.2, seed=1)
-    return [_port_batch(b) for b in data.train], [_port_batch(b) for b in data.eval]
+    data = run_anomaly_scenario(SimulationConfig(**GATE_SIM), **GATE_SCENARIO)
+    return data.train, data.eval
+
+
+def test_gate_windows_equal_the_reference(scenario):
+    """The gate's windows, made by the port, are the reference's bit for
+    bit: every array the model or the metric reads, and the split."""
+    ref = jax_run_anomaly_scenario(JaxSimulationConfig(**GATE_SIM), **GATE_SCENARIO)
+    train, evals = scenario
+    assert (len(train), len(evals)) == (len(ref.train), len(ref.eval))
+    for got, want in zip(train + evals, ref.train + ref.eval):
+        assert (got.n_nodes, got.n_edges, got.window_start_ms) == (want.n_nodes, want.n_edges, want.window_start_ms)
+        for k in ("node_feats", "node_type", "node_mask", "edge_src", "edge_dst", "edge_type", "edge_feats",
+                  "edge_mask", "edge_label", "edge_fault_kind"):
+            g, w = getattr(got, k), getattr(want, k)
+            assert g.dtype == w.dtype and np.array_equal(g, w), k
 
 
 @pytest.mark.parametrize("model", ["graphsage", "gat"])
