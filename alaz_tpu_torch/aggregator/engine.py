@@ -571,11 +571,17 @@ class Aggregator:
         """Lazy per-aggregator NativeL7Engine, or None (fallback). The
         miss latches so an unbuildable .so logs one warning, not one per
         batch."""
-        raise ValueError(
-            "engine_backend=native: the native L7 engine is not ported to "
-            "alaz_tpu_torch yet (ROADMAP §1, native, sharded and process "
-            "ingest); use ENGINE_BACKEND=python"
-        )
+        if self._native_l7 is None and not self._native_l7_failed:  # alazlint: disable=ALZ010 -- _l7_lock IS held on every concurrent path (process_l7/flush_retries callers); the remaining callers are single-threaded construction-time prewarms (sharded pool init, shm worker pre-ready) before any traffic thread exists
+            from alaz_tpu_torch.aggregator import native_l7
+
+            self._native_l7 = native_l7.make_engine()  # alazlint: disable=ALZ010 -- same caller-held _l7_lock / pre-traffic prewarm contract as the check above
+            if self._native_l7 is None:  # alazlint: disable=ALZ010 -- same caller-held _l7_lock / pre-traffic prewarm contract as the check above
+                self._native_l7_failed = True  # alazlint: disable=ALZ010 -- same caller-held _l7_lock / pre-traffic prewarm contract as the check above
+                log.warning(
+                    "engine_backend=native requested but libalaz_ingest.so "
+                    "is unavailable; falling back to the python L7 engine"
+                )
+        return self._native_l7  # alazlint: disable=ALZ010 -- same caller-held _l7_lock / pre-traffic prewarm contract as the check above
 
     def _process_l7_inner(
         self, events: np.ndarray, attempts: int, now_ns: int

@@ -331,8 +331,12 @@ def set_native_grouping(enabled: Optional[bool]) -> None:
 def _use_native_grouping() -> bool:
     global _native_grouping
     if _native_grouping is None:
-        # the C++ grouping core is not ported: numpy serves
-        _native_grouping = False
+        try:
+            from alaz_tpu_torch.graph import native
+
+            _native_grouping = native.available()
+        except Exception:  # toolchain-less images: numpy serves
+            _native_grouping = False
     return _native_grouping
 
 
@@ -369,11 +373,11 @@ def group_reduce(
     argsort+reduceat path is the fallback and the semantic reference."""
     n = keys.shape[0]
     if n and _use_native_grouping():
-        raise ValueError(
-            "native grouping: the C++ core (libalaz_ingest.so) is not "
-            "ported to alaz_tpu_torch yet (ROADMAP §1, native, sharded and "
-            "process ingest); call set_native_grouping(False)"
-        )
+        from alaz_tpu_torch.graph import native
+
+        out = native.group_edges(keys, sum_cols, max_cols)
+        if out is not None:
+            return out
     if n == 0:
         empty = np.zeros(0, dtype=np.float64)
         return (
@@ -479,11 +483,11 @@ def degree_cap_select(
     lexsort fallback otherwise — bit-identical by construction."""
     n = e_dst.shape[0]
     if n and _use_native_grouping():
-        raise ValueError(
-            "native grouping: the C++ core (libalaz_ingest.so) is not "
-            "ported to alaz_tpu_torch yet (ROADMAP §1, native, sharded and "
-            "process ingest); call set_native_grouping(False)"
-        )
+        from alaz_tpu_torch.graph import native
+
+        out = native.sample_degree_cap(e_dst, prio, cap)
+        if out is not None:
+            return out
     if n == 0:
         return np.zeros(0, dtype=np.int64)
     # stable lexsort: within a dst group, ascending (prio, original

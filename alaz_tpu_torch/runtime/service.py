@@ -1239,6 +1239,20 @@ class Service:
             from alaz_tpu_torch.ops import _build
 
             _build.library()
+        # the native library, where the config asks for it, is built and
+        # loaded here too, so that a library that cannot be built raises
+        # from start() and not inside a worker; the window close groups in
+        # C++ where the library builds and in numpy otherwise (the
+        # auto-detect), and says once which serves
+        from alaz_tpu_torch.graph import builder as graph_builder
+
+        for part in self.partitions:
+            if part.sharded is None and part.aggregator._use_native_engine():
+                part.aggregator._native_l7_engine()
+        log.info(
+            "window close grouping: "
+            + ("C++ (libalaz_ingest)" if graph_builder._use_native_grouping() else "numpy")
+        )
         # one consumer set per tenant partition (isolation: tenant A's
         # queue backlog stalls only tenant A's workers), ONE scorer and
         # ONE housekeeping thread for the fleet

@@ -133,11 +133,32 @@ class TenantPartition:
         self.sharded = None
         self.fault_hook = None
         if use_native_ingest:
-            raise ValueError(
-                "use_native_ingest: the C++ window accumulator is not ported "
-                "to alaz_tpu_torch yet (ROADMAP §1 item 3, native, sharded "
-                "and process ingest)"
-            )
+            from alaz_tpu_torch.graph import native as native_mod
+
+            if native_mod.available():
+                if ingest_workers > 1:
+                    log.warning(
+                        "ingest_workers > 1 ignored with use_native_ingest: "
+                        "the C++ window accumulator is its own ingest plane"
+                    )
+                # degree_cap rides the C++ close pass itself now
+                # (alz_close_window_feats selects bottom-k priorities per
+                # hot dst, bit-identical to degree_cap_select) — cut rows
+                # land in the shared ledger under sampled/degree_cap, same
+                # as the GraphBuilder paths
+                self.graph_store = native_mod.NativeWindowedStore(
+                    window_s=config.window_s,
+                    on_batch=on_batch,
+                    renumber=renumber,
+                    degree_cap=degree_cap,
+                    sample_seed=sample_seed,
+                    ledger=self.ledger,
+                )
+            else:
+                log.warning(
+                    "native ingest requested but library unavailable; "
+                    "using numpy store"
+                )
         if self.graph_store is None and (
             ingest_workers > 1 or ingest_backend == "process"
         ):

@@ -57,6 +57,20 @@ Phases, each raising on failure:
                 serial scores; close → score latency, edges/s, arenas,
                 peak memory, and the same windows through
                 ``WindowScorer``;
+   serve native -- the same Service through native ingest: the C++ ingest
+                core built with g++ from ``alaz_tpu_torch/native/
+                ingest.cc`` into ``build/alaz_tpu_torch/`` (its source
+                hash checked), GraphSAGE on config5 with the C++ L7 engine
+                (``ENGINE_BACKEND=native``) and window accumulator
+                (``use_native_ingest=True``), the same replay through the
+                thread-sharded ingest (4 workers, each joining in C++,
+                grouping in C++), GAT banded, renumbered and blocked on
+                config3 through the C++ accumulator; the serve phase's
+                checks, and beside each run the serve phase's Python-engine
+                run of the same config: events/s, close → score, scorer
+                busy time a window and duty cycle, drops by cause, peak
+                memory; GraphSAGE's windows scored again with nothing
+                ingesting (the scorer's busy time without ingest load);
    train cli -- ``python -m alaz_tpu_torch train --model m`` in this
                 process for each family on the CLI's default replay config
                 (full width, ``ModelConfig.from_env()``; GAT with
@@ -705,14 +719,14 @@ SERVE_RUNS = (
 SERVE_LAUNCHES = {"graphsage": (2, 1, 0), "gat": (2, 3, 3), "experts": (2, 1, 0), "tgn": (2, 1, 0)}
 
 
-def _replay_config(path: str):
-    """The replay config with its testDuration cut to SERVE_DURATION_S and
+def _replay_config(path: str, duration_s: float = SERVE_DURATION_S):
+    """The replay config with its testDuration cut to ``duration_s`` and
     nothing else changed. Returns (SimulationConfig, the file's duration)."""
     from alaz_tpu_torch.config import SimulationConfig
 
     with open(path) as f:
         raw = json.load(f)
-    return SimulationConfig.from_json(dict(raw, testDuration=SERVE_DURATION_S)), raw["testDuration"]
+    return SimulationConfig.from_json(dict(raw, testDuration=duration_s)), raw["testDuration"]
 
 
 def _submit(submit, queue, batch, rows: int) -> None:
@@ -745,14 +759,16 @@ def _replay(svc, sim) -> tuple:
     return events, time.perf_counter() - t0
 
 
-def _serve_once(cfg, params, sim_cfg=None, backlog=None, device: str = "cuda") -> dict:
+def _serve_once(cfg, params, sim_cfg=None, backlog=None, device: str = "cuda",
+                use_native_ingest: bool = False) -> dict:
     """One run of the streaming Service on the card: replayed traffic
     through ingest → aggregator → window close → scorer (``sim_cfg``,
     flat out), or the closed windows of an earlier run handed to the
     window close callback before the workers start, so the scorer finds
     them as a backlog (``backlog``). Launch counts and peak memory are
     read around exactly this run; a worker thread that raises fails the
-    phase."""
+    phase. ``use_native_ingest`` closes windows in the C++ window
+    accumulator."""
     from alaz_tpu_torch.events.intern import Interner
     from alaz_tpu_torch.ops import segment_kernels as K
     from alaz_tpu_torch.replay.simulator import Simulator
@@ -761,7 +777,8 @@ def _serve_once(cfg, params, sim_cfg=None, backlog=None, device: str = "cuda") -
     interner = Interner()
     sunk, windows, latency = [], [], []
     svc = Service(config=cfg, interner=interner, score_sink=sunk.append,
-                  model_state=params, score_threshold=0.0, device=device)
+                  model_state=params, score_threshold=0.0, device=device,
+                  use_native_ingest=use_native_ingest)
     on_card = svc.torch_device.type == "cuda"
     svc.score_observer = lambda batch, tenant, lat: (windows.append(batch), latency.append(lat))
     raised, hook = [], threading.excepthook
@@ -881,7 +898,7 @@ def phase_serve(device: str = "cuda", runs=SERVE_RUNS) -> dict:
     also scores the windows of its replay, three times over, as a backlog
     at ``score_batch_windows=4`` (the group path) against its serial
     scores.
-    Returns the launch counts of each run."""
+    Returns the launch counts of each run and each run's entry."""
     from alaz_tpu_torch.config import ModelConfig, RuntimeConfig
     from alaz_tpu_torch.graph.snapshot import pad_to_bucket
     from alaz_tpu_torch.models.registry import init_params
@@ -932,6 +949,137 @@ def phase_serve(device: str = "cuda", runs=SERVE_RUNS) -> dict:
         out[family] = entry
         emit(f"serve_{family}", entry)
         del run, plain
+    return launches, out
+
+
+SERVE_NATIVE_RUNS = (
+    # tag, family, replay config, testDuration cut, least windows, ModelConfig
+    # and RuntimeConfig settings, whether the C++ window accumulator closes
+    # the windows
+    ("graphsage", "graphsage", "testconfig/config5_fleet_100k.json", SERVE_DURATION_S, 4, {},
+     {"engine_backend": "native"}, True),
+    # the thread-sharded ingest: four workers, each joining in C++, the
+    # window close grouping in C++ through the numpy builder. It takes
+    # config5's events at ~14,000/s on the card's host (no faster than one
+    # Python engine), so its replay is cut to 1.1 s: one full window and a
+    # tenth of one
+    ("graphsage_4_workers", "graphsage", "testconfig/config5_fleet_100k.json", 1.1, 2, {},
+     {"engine_backend": "native", "ingest_workers": 4}, False),
+    ("gat", "gat", "testconfig/config3_10k_mixed.json", SERVE_DURATION_S, 4,
+     {"model": "gat", "src_gather": "banded", "edge_layout": "blocked"},
+     {"engine_backend": "native", "renumber_nodes": True, "edge_layout": "blocked"}, True),
+)
+
+
+def _native_build() -> dict:
+    """The C++ ingest core this checkout built: the library g++ wrote
+    under ``build/alaz_tpu_torch/`` from ``alaz_tpu_torch/native/
+    ingest.cc``, stamped with that source's hash. The serve phase's
+    grouping auto-detect built and loaded it already; one more forced
+    build, over the same file, times g++ on this host."""
+    import hashlib
+
+    from alaz_tpu_torch.graph import native
+
+    src = Path("alaz_tpu_torch/native/ingest.cc").resolve()
+    want = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    require(native.available(), "libalaz_ingest did not load")
+    lib = Path(native._LIB_PATH).resolve()
+    require(lib.parent == Path("build/alaz_tpu_torch").resolve(), f"native library {lib} is not the checkout's build")
+    got = native.loaded_source_hash()
+    require(got == want, f"native library stamped {got}, ingest.cc hashes to {want}")
+    t0 = time.perf_counter()
+    require(native.build(force=True) == native._LIB_PATH, "a forced build wrote another library")
+    return {"library": str(lib.relative_to(Path.cwd().resolve())), "source_hash": got,
+            "gxx_build_s": time.perf_counter() - t0}
+
+
+def _host_side(s: dict, snap: dict | None = None) -> dict:
+    """What the comparison of ingest paths reads off one run's summary
+    (and, where the run's service is at hand, its drop gauges)."""
+    out = {
+        "events_per_s": s["events_per_s"],
+        "close_to_score_s": s["close_to_score_s"],
+        "scorer_busy_s_per_window": s["scorer_busy_s"] / max(s["windows_scored"], 1),
+        "scorer_duty_cycle_pct": s["scorer_duty_cycle_pct"],
+        "ledger_reasons": s["ledger"].get("reasons", {}),
+        "max_memory_allocated_bytes": s["max_memory_allocated_bytes"],
+    }
+    if snap is not None:
+        out["drops"] = {k: snap.get(k) for k in ("l7.dropped", "windows.late_dropped", "ingest.ring_dropped",
+                                                 "ingest.acc_dropped")}
+    return out
+
+
+def phase_serve_native(python_runs: dict, device: str = "cuda", runs=SERVE_NATIVE_RUNS) -> dict:
+    """The streaming Service on the card through native ingest: the C++
+    L7 engine (``ENGINE_BACKEND=native``), the C++ window accumulator
+    (``use_native_ingest=True``) or the thread-sharded ingest with C++
+    grouping, at phase_serve's widths and replays. The library must be
+    the checkout's own build, stamped with its source's hash. Each run:
+    at least its least windows closed, every closed window scored, no worker
+    exception, scores finite in [0, 1], the native path in use, the
+    kernels' launches per dispatch, the same windows rescored under the
+    plain versions and held to them; beside it, phase_serve's run of the
+    same config on the Python engine (``python_runs``), and the same
+    windows through ``WindowScorer``. GraphSAGE's native windows are also
+    scored again as a backlog with nothing ingesting: the scorer's busy
+    time without ingest load. Returns the launch counts of each run."""
+    from alaz_tpu_torch.config import ModelConfig, RuntimeConfig
+    from alaz_tpu_torch.graph import builder
+    from alaz_tpu_torch.graph.native import NativeWindowedStore
+    from alaz_tpu_torch.models.registry import init_params
+
+    build = _native_build()
+    emit("serve_native_build", build)
+    launches = {}
+    for tag, family, path, duration_s, min_windows, model_kw, runtime_kw, native_store in runs:
+        sim_cfg, full_s = _replay_config(path, duration_s) if isinstance(path, str) else (path, None)
+        mcfg = ModelConfig(**model_kw)
+        require((mcfg.hidden_dim, mcfg.num_layers, mcfg.dtype, mcfg.use_pallas) == (128, 2, "bfloat16", True),
+                f"unexpected ModelConfig {mcfg}")
+        cfg = RuntimeConfig(model=mcfg, window_s=1.0, score_batch_windows=1, **runtime_kw)
+        params = init_params(mcfg, key=0, device=device)
+        run = _serve_once(cfg, params, sim_cfg=sim_cfg, device=device, use_native_ingest=native_store)
+        svc = run["svc"]
+        require(run["summary"]["windows_scored"] >= min_windows,
+                f"serve_native {tag}: fewer than {min_windows} windows")
+        if native_store:
+            require(isinstance(svc.graph_store, NativeWindowedStore) and svc.aggregator._native_l7 is not None,
+                    f"serve_native {tag}: not the native store and engine")
+        else:
+            require(all(w._native_l7 is not None for w in svc.sharded.workers)
+                    and builder._use_native_grouping(), f"serve_native {tag}: not the native engine and grouping")
+        _require_launches(family, run)
+        launches[f"serve_native_{tag}"] = run["summary"]["launches"]
+        with plain_kernels():
+            plain = _serve_once(cfg, params, backlog=run["windows"], device=device)
+        entry = {
+            "replay": {"config": path if isinstance(path, str) else None, "testDuration_s": [full_s, sim_cfg.test_duration_s],
+                       "pods": sim_cfg.pod_count, "edges": sim_cfg.edge_count, "rate_per_edge": sim_cfg.edge_rate},
+            "runtime": runtime_kw, "native_store": native_store,
+            "model": {k: getattr(mcfg, k) for k in ("model", "src_gather", "edge_layout")},
+            "serial": run["summary"],
+            "native": _host_side(run["summary"], svc.metrics.snapshot()),
+            "vs_plain_versions": _scores_agree(f"serve_native {tag} vs plain", run["scores"], plain["scores"]),
+            "window_scorer": _window_scorer_times(mcfg, params, run["windows"], device),
+        }
+        py = python_runs.get(family)
+        if py is not None:
+            entry["python_engine"] = dict(_host_side(py["serial"]), window_scorer_median_s=py[
+                "window_scorer"]["score_s_median_after_first"])
+        if tag == "graphsage":
+            idle = _serve_once(cfg, params, backlog=run["windows"], device=device)
+            _require_launches(family, idle)
+            launches["serve_native_graphsage_no_ingest"] = idle["summary"]["launches"]
+            entry["no_ingest_backlog"] = {
+                "scorer_busy_s_per_window": idle["summary"]["scorer_busy_s"] / idle["summary"]["windows_scored"],
+                "vs_ingest_run": _scores_agree("serve_native graphsage backlog vs ingest run", idle["scores"],
+                                               run["scores"]),
+            }
+            del idle
+        emit(f"serve_native_{tag}", entry)
+        del run, plain, svc
     return launches
 
 
@@ -1444,6 +1592,57 @@ def eval_matrix(out: str = "build/chip_smoke/eval_card.json") -> int:
     emit("eval_calls", probe.records)
     emit("eval_wall", {"exit_code": rc, "seconds": time.perf_counter() - t0, "card": card_line()})
     return rc
+
+
+def ingest_profile(config: str = "testconfig/config5_fleet_100k.json", duration_s: float = 1.1,
+                   engine: str = "native", native_store: bool = True, top: int = 12) -> dict:
+    """Host ingest alone under ``cProfile``: the replay config's traffic,
+    its testDuration cut to ``duration_s``, through one tenant partition
+    (``ENGINE_BACKEND=engine``, the C++ window accumulator if
+    ``native_store``) on this thread, no model and no service threads.
+    The K8s metadata and the TCP establishes go in first; the L7 batches
+    and the final flush are profiled. Prints and returns one JSON object:
+    events, seconds, events/s and the functions with the most own time.
+    Not a phase of ``main``; host time only, on whatever host runs it:
+
+        python3 -c "import chip_smoke; chip_smoke.ingest_profile(engine='python', native_store=False)"
+    """
+    import cProfile
+    import pstats
+
+    from alaz_tpu_torch.config import RuntimeConfig
+    from alaz_tpu_torch.events.intern import Interner
+    from alaz_tpu_torch.replay.simulator import Simulator
+    from alaz_tpu_torch.runtime.tenancy import TenantPartition
+
+    sim_cfg, _ = _replay_config(config, duration_s)
+    interner, closed = Interner(), []
+    part = TenantPartition(0, RuntimeConfig(engine_backend=engine), on_batch=closed.append,
+                           interner=interner, use_native_ingest=native_store)
+    sim = Simulator(sim_cfg, interner=interner)
+    for m in sim.setup():
+        part.aggregator.process_k8s(m)
+    part.aggregator.process_tcp(sim.tcp_events())
+    batches = list(sim.iter_l7_batches())
+    events = sum(b.shape[0] for b in batches)
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    for b in batches:
+        part.aggregator.process_l7(b)
+    part.graph_store.flush()
+    prof.disable()
+    wall = time.perf_counter() - t0
+    own = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: kv[1][2], reverse=True)[:top]
+    out = {
+        "config": config, "duration_s": duration_s, "engine": engine, "native_store": native_store,
+        "events": events, "batches": len(batches), "windows": len(closed), "seconds": wall,
+        "events_per_s": events / wall,
+        "own_time": [{"function": f"{Path(fn).name}:{line}({name})", "s": tt, "calls": nc}
+                     for (fn, line, name), (_, nc, tt, _, _) in own],
+    }
+    emit("ingest_profile", out)
+    return out
 
 
 # -- phase 7 ----------------------------------------------------------------
@@ -1972,7 +2171,8 @@ def main() -> int:
     gsl, gat_scorer = phase_gat_slice(gat_batches)
     esl, experts_scorer = phase_experts_slice(batches)
     tsl, tgn_scorer = phase_tgn_slice(batches)
-    serve_launches = phase_serve()
+    serve_launches, serve_runs = phase_serve()
+    serve_launches.update(phase_serve_native(serve_runs))
     train_cli = phase_train_cli()
     phase_serve_cli(train_cli["ckpt"])
     config3 = phase_train_cli_config3()

@@ -7,9 +7,8 @@ parsed, the copy's imports of ``alaz_tpu_torch`` are renamed back to
 reach the tree; docstrings, names, strings and every statement do. The
 only differences allowed are listed per module below:
 
-- ``raises``: a branch the port does not carry yet (native and process
-  ingest, the native L7 engine, the C++ grouping core, the chaos suite's
-  frame and export legs). Its body
+- ``raises``: a branch the port does not carry yet (process ingest, the
+  chaos suite's frame and export legs). Its body
   in the copy must be one ``raise ValueError(...)`` naming the ROADMAP
   item that will port it; the branch's test stays as in the JAX source.
 - ``ported``: a definition written for torch or the card (the device
@@ -63,13 +62,14 @@ COPIES = {
     "aggregator/h2.py": {},
     "aggregator/sockline.py": {},
     "aggregator/procfs.py": {},
-    "aggregator/engine.py": {"raises": [("Aggregator._native_l7_engine", None)]},
-    "graph/builder.py": {
-        "ported": {"_use_native_grouping"},
-        "raises": [
-            ("group_reduce", "n and _use_native_grouping()"),
-            ("degree_cap_select", "n and _use_native_grouping()"),
-        ],
+    "aggregator/engine.py": {},
+    "aggregator/native_l7.py": {},
+    "graph/builder.py": {},
+    # built with g++ into build/alaz_tpu_torch/ from the port's own
+    # native/ingest.cc, and raising where the JAX package falls back
+    "graph/native.py": {
+        "ported": {"<module docstring>", "_LIB_PATH", "build", "_load"},
+        "added": {"BUILD_DIR", "CXXFLAGS", "_LOAD_LOCK"},
     },
     "config.py": {"ported": {"ModelConfig"}},
     "obs/histogram.py": {},
@@ -78,10 +78,7 @@ COPIES = {
     "obs/scores.py": {},
     "obs/device.py": {"dropped": {"CompileEventPlane", "_metric_safe"}},
     "runtime/tenancy.py": {
-        "raises": [
-            ("TenantPartition.__init__", "use_native_ingest"),
-            ("TenantPartition.__init__", "ingest_backend == 'process'"),
-        ],
+        "raises": [("TenantPartition.__init__", "ingest_backend == 'process'")],
     },
     "runtime/metrics.py": {
         "ported": {"device_gauges", "_DEVICE_MEM_KEYS"},
@@ -236,15 +233,12 @@ def test_make_ingest_trace_is_a_copy():
 def test_left_out_ingest_planes_raise():
     from alaz_tpu_torch.aggregator.sharded import ShardedIngest
     from alaz_tpu_torch.config import RuntimeConfig
+    from alaz_tpu_torch.graph.native import NativeWindowedStore
     from alaz_tpu_torch.runtime.tenancy import TenantPartition
 
-    for kwargs, cfg in (
-        ({"use_native_ingest": True}, RuntimeConfig()),
-        ({}, RuntimeConfig(ingest_backend="process")),
-        ({}, RuntimeConfig(ingest_workers=2, ingest_backend="process")),
-    ):
+    for cfg in (RuntimeConfig(ingest_backend="process"), RuntimeConfig(ingest_workers=2, ingest_backend="process")):
         with pytest.raises(ValueError, match="ROADMAP"):
-            TenantPartition(0, cfg, on_batch=lambda b: None, **kwargs)
+            TenantPartition(0, cfg, on_batch=lambda b: None)
     # the thread backend is ported: two workers build the sharded pipeline
     part = TenantPartition(0, RuntimeConfig(ingest_workers=2), on_batch=lambda b: None)
     try:
@@ -252,6 +246,13 @@ def test_left_out_ingest_planes_raise():
         assert part.aggregator is part.sharded and part.sharded.n == 2
     finally:
         part.sharded.stop()
+    # and so is native ingest: the C++ window accumulator is the store
+    part = TenantPartition(0, RuntimeConfig(), on_batch=lambda b: None, use_native_ingest=True)
+    try:
+        assert isinstance(part.graph_store, NativeWindowedStore) and part.sharded is None
+        assert part.datastore.sinks == [part.graph_store]
+    finally:
+        part.graph_store.close()
 
 
 def test_left_out_chaos_legs_and_isolation_raise():
@@ -266,25 +267,48 @@ def test_left_out_chaos_legs_and_isolation_raise():
         suite_main(["--isolation", "--no-detection"])
 
 
-def test_native_grouping_and_engine_raise():
+def test_native_grouping_and_engine_raise(tmp_path, monkeypatch):
+    """Where the library cannot be built (the compiler path pointed at a
+    missing binary, an empty build directory), each explicit request for
+    native code raises with the compiler's failure, where the JAX package
+    warns and falls back to Python or numpy."""
     import numpy as np
 
     from alaz_tpu_torch.aggregator import engine
     from alaz_tpu_torch.aggregator.engine import Aggregator
+    from alaz_tpu_torch.config import RuntimeConfig
     from alaz_tpu_torch.datastore.inmem import InMemDataStore
-    from alaz_tpu_torch.graph import builder
+    from alaz_tpu_torch.events.schema import make_l7_events
+    from alaz_tpu_torch.graph import builder, native
+    from alaz_tpu_torch.runtime.tenancy import TenantPartition
 
-    assert builder._use_native_grouping() is False
+    monkeypatch.setenv("CXX", str(tmp_path / "no-such-g++"))
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "_lib", None)
+    missing = "no-such-g\\+\\+"
     builder.set_native_grouping(True)
     try:
-        with pytest.raises(ValueError, match="ROADMAP"):
+        with pytest.raises(RuntimeError, match=missing):
             builder.group_reduce(np.arange(3, dtype=np.int64), [], [])
+        with pytest.raises(RuntimeError, match=missing):
+            builder.degree_cap_select(np.zeros(3, np.int32), np.arange(3, dtype=np.uint64), 1)
     finally:
         builder.set_native_grouping(None)
-    agg = Aggregator(InMemDataStore())
+    agg = Aggregator(InMemDataStore(), config=RuntimeConfig(engine_backend="native"))
+    with pytest.raises(RuntimeError, match=missing):
+        agg.process_l7(make_l7_events(4))
     engine.set_native_engine(True)
     try:
-        with pytest.raises(ValueError, match="ROADMAP"):
-            agg._native_l7_engine()
+        with pytest.raises(RuntimeError, match=missing):
+            Aggregator(InMemDataStore())._native_l7_engine()
     finally:
         engine.set_native_engine(None)
+    with pytest.raises(RuntimeError, match=missing):
+        TenantPartition(0, RuntimeConfig(), on_batch=lambda b: None, use_native_ingest=True)
+    assert native._lib is None
+
+
+def test_ingest_cc_is_its_source_byte_for_byte():
+    """The port builds its own copy of the C++ ingest core; its bytes, and
+    so its ``ALZ_SOURCE_HASH`` stamp, are the JAX package's."""
+    assert (REPO / "alaz_tpu_torch/native/ingest.cc").read_bytes() == (REPO / "alaz_tpu/native/ingest.cc").read_bytes()

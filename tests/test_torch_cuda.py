@@ -580,3 +580,50 @@ def test_service_group_path_matches_serial_on_card(dev, layout, batch_windows, d
     assert serial and set(group) == set(serial)
     keys = sorted(serial)
     np.testing.assert_allclose([group[k] for k in keys], [serial[k] for k in keys], rtol=1e-4, atol=1e-4)
+
+
+def test_native_ingest_service_on_card_matches_plain(dev):
+    """A small replay served on the card through native ingest (the C++ L7
+    engine, ``ENGINE_BACKEND=native``, and the C++ window accumulator,
+    ``use_native_ingest=True``): every closed window scored, K1 twice and
+    K2 once a dispatch; each window scored again on the CPU through the
+    plain versions, f32, within the f32 oracle's 1e-4."""
+    import threading
+
+    from alaz_tpu_torch.config import ModelConfig, RuntimeConfig, SimulationConfig
+    from alaz_tpu_torch.events.intern import Interner
+    from alaz_tpu_torch.graph.native import NativeWindowedStore
+    from alaz_tpu_torch.models.registry import init_params
+    from alaz_tpu_torch.replay.simulator import Simulator
+    from alaz_tpu_torch.runtime.scorer import WindowScorer
+    from alaz_tpu_torch.runtime.service import Service
+
+    cfg = RuntimeConfig(model=ModelConfig(dtype="float32"), engine_backend="native")
+    interner, sunk, windows, raised = Interner(), [], [], []
+    svc = Service(config=cfg, interner=interner, score_sink=sunk.append,
+                  model_state=init_params(cfg.model, key=0, device="cuda"),
+                  score_threshold=0.0, device="cuda", use_native_ingest=True)
+    assert isinstance(svc.graph_store, NativeWindowedStore)
+    svc.score_observer = lambda batch, tenant, lat: windows.append(batch)
+    sim = Simulator(SimulationConfig(test_duration_s=3.0, **_CARD_SIM), interner=interner)
+    for m in sim.setup():
+        svc.aggregator.process_k8s(m)
+    svc.aggregator.process_tcp(sim.tcp_events())
+    for b in sim.iter_l7_batches():
+        svc.aggregator.process_l7(b)
+    svc.flush_windows()
+    hook, threading.excepthook = threading.excepthook, raised.append
+    K.reset_launch_counts()
+    try:
+        svc.start()
+        svc.drain(timeout_s=120)
+        svc.stop()
+    finally:
+        threading.excepthook = hook
+    assert raised == [] and svc.aggregator._native_l7 is not None
+    assert svc.scored_batches == svc.metrics.counter("windows.closed").value == len(sunk) == 3
+    assert K.launch_counts()["scatter_sum_sorted"] == 2 * svc.score_dispatches
+    assert K.launch_counts()["segment_expand_sorted"] == svc.score_dispatches
+    plain = WindowScorer(cfg.model, init_params(cfg.model, key=0, device="cpu"), device="cpu")
+    for b, sb in zip(windows, sunk):
+        np.testing.assert_allclose(sb.score, plain.score(b), rtol=1e-4, atol=1e-4)

@@ -20,6 +20,10 @@ Held here:
 - the group path (``score_batch_windows=4``: the block-diagonal stack)
   against the JAX package's vmapped path and against the port's serial
   path, ``edge_feat_znorm`` on, and GAT's saturation gauge equal;
+- the same two holds with native ingest on both sides
+  (``ENGINE_BACKEND=native``, ``use_native_ingest=True``: the C++ L7
+  engine and window accumulator): the windows, and the scores of
+  GraphSAGE over COO and GAT renumbered and blocked;
 - TGN refusing the group path and ``renumber_nodes``; arena reuse in
   steady state; the metric names; no card, no service.
 """
@@ -51,12 +55,12 @@ SIM = dict(pod_count=30, service_count=10, edge_count=15, edge_rate=200)
 HIDDEN = 32
 
 
-def _cfgs(model="graphsage", layout="coo", renumber=False, batch_windows=1, **model_kw):
+def _cfgs(model="graphsage", layout="coo", renumber=False, batch_windows=1, engine_backend="python", **model_kw):
     kw = dict(model=model, hidden_dim=HIDDEN, dtype="float32", edge_layout=layout, **model_kw)
     out = []
     for runtime, mcfg, use_pallas in ((JaxRuntimeConfig, JaxModelConfig, False), (RuntimeConfig, ModelConfig, True)):
         cfg = runtime(model=mcfg(use_pallas=use_pallas, **kw), score_batch_windows=batch_windows,
-                      edge_layout=layout, renumber_nodes=renumber)
+                      edge_layout=layout, renumber_nodes=renumber, engine_backend=engine_backend)
         out.append(cfg)
     return out
 
@@ -90,20 +94,21 @@ def _ingest(svc, sim) -> None:
     svc.flush_windows()
 
 
-def _serve(kind, cfg, params, duration_s=3.0, seed=11):
+def _serve(kind, cfg, params, duration_s=3.0, seed=11, native=False):
     """Build the JAX (``kind="jax"``) or the port's service, ingest the
     traffic, then start it so the scorer takes the backlog. Returns the
-    service, its score records and the scored windows in order."""
+    service, its score records and the scored windows in order.
+    ``native`` closes windows in the C++ window accumulator."""
     records, windows = [], []
     if kind == "jax":
         interner = JaxInterner()
         svc = JaxService(config=cfg, interner=interner, score_sink=records.extend,
-                         model_state=params, score_threshold=0.0)
+                         model_state=params, score_threshold=0.0, use_native_ingest=native)
         sim = JaxSimulator(JaxSimulationConfig(test_duration_s=duration_s, seed=seed, **SIM), interner=interner)
     else:
         interner = Interner()
         svc = Service(config=cfg, interner=interner, score_sink=records.extend,
-                      model_state=params, score_threshold=0.0, device="cpu")
+                      model_state=params, score_threshold=0.0, device="cpu", use_native_ingest=native)
         sim = Simulator(SimulationConfig(test_duration_s=duration_s, seed=seed, **SIM), interner=interner)
     svc.score_observer = lambda batch, tenant, lat: windows.append(batch)
     _ingest(svc, sim)
@@ -138,14 +143,29 @@ def _closed_windows(svc, sim) -> list:
 @pytest.mark.parametrize("layout", ["coo", "blocked"])
 @pytest.mark.parametrize("renumber", [False, True])
 def test_closed_windows_equal_bit_for_bit(layout, renumber):
-    jcfg, pcfg = _cfgs(layout=layout, renumber=renumber)
+    _hold_closed_windows(layout, renumber, native=False)
+
+
+@pytest.mark.parametrize("layout", ["coo", "blocked"])
+@pytest.mark.parametrize("renumber", [False, True])
+def test_closed_windows_equal_bit_for_bit_native_ingest(layout, renumber):
+    """Both services with ``ENGINE_BACKEND=native`` and
+    ``use_native_ingest=True``: the C++ L7 engine and window accumulator."""
+    _hold_closed_windows(layout, renumber, native=True)
+
+
+def _hold_closed_windows(layout, renumber, native):
+    backend = "native" if native else "python"
+    jcfg, pcfg = _cfgs(layout=layout, renumber=renumber, engine_backend=backend)
     jint, pint = JaxInterner(), Interner()
     sim_cfg = JaxSimulationConfig(test_duration_s=3.0, seed=3, **SIM)
-    ref = _closed_windows(JaxService(config=jcfg, interner=jint), JaxSimulator(sim_cfg, interner=jint))
-    got = _closed_windows(
-        Service(config=pcfg, interner=pint, device="cpu"),
-        Simulator(SimulationConfig(test_duration_s=3.0, seed=3, **SIM), interner=pint),
-    )
+    jsvc = JaxService(config=jcfg, interner=jint, use_native_ingest=native)
+    psvc = Service(config=pcfg, interner=pint, device="cpu", use_native_ingest=native)
+    ref = _closed_windows(jsvc, JaxSimulator(sim_cfg, interner=jint))
+    got = _closed_windows(psvc, Simulator(SimulationConfig(test_duration_s=3.0, seed=3, **SIM), interner=pint))
+    assert (type(psvc.graph_store).__name__, type(jsvc.graph_store).__name__) == (
+        ("NativeWindowedStore",) * 2 if native else ("WindowedGraphStore",) * 2)
+    assert (psvc.aggregator._native_l7 is not None) == (jsvc.aggregator._native_l7 is not None) == native
     assert len(ref) >= 3 and len(got) == len(ref)
     for g, r in zip(got, ref):
         assert (g.window_start_ms, g.n_nodes, g.n_edges, g.bucket_key) == (r.window_start_ms, r.n_nodes, r.n_edges, r.bucket_key)
@@ -176,13 +196,35 @@ ZNORM_GAT_TOL = 1e-3
 
 @pytest.mark.parametrize("family", sorted(FAMILIES))
 def test_serial_scores_match_the_jax_service(family):
-    jcfg, pcfg = _cfgs(**FAMILIES[family])
+    _hold_serial_scores(FAMILIES[family], native=False)
+
+
+# native ingest: GraphSAGE over COO windows, GAT renumbered and blocked
+NATIVE_FAMILIES = {
+    "graphsage": dict(),
+    "gat": dict(model="gat", src_gather="banded", renumber=True, layout="blocked"),
+}
+
+
+@pytest.mark.parametrize("family", sorted(NATIVE_FAMILIES))
+def test_serial_scores_match_the_jax_service_native_ingest(family):
+    """Both services with ``ENGINE_BACKEND=native`` and
+    ``use_native_ingest=True``, at the tolerances above."""
+    _hold_serial_scores(NATIVE_FAMILIES[family], native=True)
+
+
+def _hold_serial_scores(kw, native):
+    jcfg, pcfg = _cfgs(engine_backend="native" if native else "python", **kw)
     jparams = _params(jcfg)
-    jsvc, jrec, _ = _serve("jax", jcfg, jax.tree_util.tree_map(jax.numpy.asarray, jparams))
-    psvc, prec, _ = _serve("port", pcfg, _port_params(pcfg, jparams))
+    jsvc, jrec, jwin = _serve("jax", jcfg, jax.tree_util.tree_map(jax.numpy.asarray, jparams), native=native)
+    psvc, prec, pwin = _serve("port", pcfg, _port_params(pcfg, jparams), native=native)
     assert psvc.scored_batches == psvc.metrics.counter("windows.closed").value == jsvc.scored_batches >= 3
     assert psvc.score_dispatches == psvc.scored_batches
-    _assert_maps_close(_score_map(prec), _score_map(jrec), _tol(FAMILIES[family]))
+    assert (type(psvc.graph_store).__name__ == "NativeWindowedStore") == native
+    for g, r in zip(pwin, jwin):
+        for k, v in r.device_arrays(jcfg.edge_layout).items():
+            assert np.array_equal(g.device_arrays(pcfg.edge_layout)[k], v), k
+    _assert_maps_close(_score_map(prec), _score_map(jrec), _tol(kw))
 
 
 @pytest.mark.parametrize(
