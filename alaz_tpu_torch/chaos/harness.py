@@ -167,11 +167,26 @@ def _run_pipeline_leg(
                 )
 
     if backend == "process":
-        raise ValueError(
-            "ingest_backend=process: the shared-memory process pool (shm/) "
-            "is not ported to alaz_tpu_torch yet (ROADMAP §1 item 3, native, "
-            "sharded and process ingest); run the thread backend"
+        # process-mode pipeline (ISSUE 15): SAME seams, SAME gates. The
+        # worker seam's WorkerCrash verdicts become SIGKILLs of real
+        # shard processes mid-wave — conservation must hold through a
+        # kill that freezes the worker's books mid-flight. Topology goes
+        # through process_k8s (the ring broadcast): a pre-folded shared
+        # ClusterInfo cannot cross the spawn boundary.
+        from alaz_tpu_torch.shm.process_pool import ProcessShardedIngest
+
+        pipe = ProcessShardedIngest(
+            n_workers,
+            interner=interner,
+            window_s=1.0,
+            on_batch=closed.append,
+            ledger=ledger,
+            fault_hook=fault_hook,
+            shed_block_s=0.5,
+            recorder=recorder,
         )
+        for m in msgs:
+            pipe.process_k8s(m)
     else:
         cluster = ClusterInfo(interner)
         for m in msgs:

@@ -28,8 +28,8 @@ def main(argv=None) -> int:
     """The JAX package's suite CLI, run by the port: the same flags,
     seeds, gates and exit code (1 on any finding), with ``--device``
     (default ``cuda``) for the detection legs' training and scoring.
-    ``--isolation`` (``replay/tenants.py``) is not ported yet and
-    raises before any scenario runs."""
+    ``--isolation`` runs the multi-tenant isolation gate
+    (``replay/tenants.py``) on the host scorer: no model, no device."""
     scfg = ScenarioConfig.from_env()
     p = argparse.ArgumentParser(
         prog="python -m alaz_tpu_torch.replay",
@@ -51,7 +51,10 @@ def main(argv=None) -> int:
     )
     p.add_argument(
         "--isolation", action="store_true",
-        help="the multi-tenant isolation gate (not ported yet: raises)",
+        help="also run the multi-tenant isolation gate: K=3 "
+        "tenants on one service, one perturbed by an incident — clean "
+        "tenants must hold latency vs solo, stay drift-silent, and "
+        "conserve rows exactly per tenant",
     )
     p.add_argument(
         "--isolation-tenants", type=int, default=3,
@@ -59,13 +62,6 @@ def main(argv=None) -> int:
     )
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.isolation:
-        raise ValueError(
-            "--isolation: the multi-tenant isolation gate (replay/tenants.py) "
-            "is not ported to alaz_tpu_torch yet (ROADMAP §1 item 3, native, "
-            "sharded and process ingest)"
-        )
-
     failed = 0
     for seed in args.seeds:
         for name in args.scenarios:
@@ -79,6 +75,15 @@ def main(argv=None) -> int:
             print(json.dumps(rep.as_dict(), sort_keys=True), flush=True)
             if not rep.ok:
                 failed += 1
+    if args.isolation:
+        from alaz_tpu_torch.replay.tenants import run_isolation_scenario
+
+        trep = run_isolation_scenario(
+            tenants=args.isolation_tenants, seed=args.seeds[0]
+        )
+        print(json.dumps(trep.as_dict(), sort_keys=True), flush=True)
+        if not trep.ok:
+            failed += 1
     if args.stress:
         rep = run_incident_scenario(
             "hot_key",

@@ -23,6 +23,10 @@ tenancy) is the JAX package's, copied. What differs is the device leg:
 - there is no XLA compile event plane: nothing is traced or compiled per
   bucket, and the kernels are built once, before the workers start.
 
+With a host scorer (``score_fn``, and ``score_many_fn`` for groups) the
+model, the card and the kernels are left out: windows stay numpy and
+the callables score them on the host, as in the JAX package.
+
 Pause/resume hooks match the health checker's stop/resume protocol.
 """
 
@@ -162,8 +166,11 @@ class StagingArenas:
         return arena
 
 
-def _to_numpy(x: torch.Tensor) -> np.ndarray:
-    """A score output read back to the host (waits for the device)."""
+def _to_numpy(x) -> np.ndarray:
+    """A score output read back to the host (waits for the device); a
+    host scorer's output as it is."""
+    if not isinstance(x, torch.Tensor):
+        return np.asarray(x)
     return x.float().cpu().numpy()
 
 
@@ -225,13 +232,31 @@ class Service:
         model_state: Any = None,  # params; None = scoring disabled
         score_threshold: float = 0.5,  # only annotate edges scoring above
         use_native_ingest: bool = False,  # C++ window accumulator when built
+        score_fn: Optional[Callable] = None,  # host scorer override (see below)
+        score_many_fn: Optional[Callable] = None,  # its stacked-group twin
         device=None,  # the card scoring runs on; default cuda
     ):
         self.score_threshold = score_threshold
         self.use_native_ingest = use_native_ingest
+        # host scorer override: ``score_fn(params, graph) ->
+        # {"edge_logits": ...}`` replaces the model — the tenancy
+        # replay harness drives the WHOLE service plane (queues →
+        # partitions → window queue → scorer → per-tenant score planes)
+        # with a deterministic numpy scorer, so isolation gates measure
+        # the plane, not the device. When set, graphs stay numpy (no
+        # copy to a card, no kernel build) and ``score_many_fn(params,
+        # stacked)`` — if given — serves the micro-batch group path over
+        # the stacked arenas as numpy arrays.
+        # OWNERSHIP: ``stacked`` is a REUSED double-buffered staging
+        # arena — score_many_fn must return arrays it owns (any
+        # arithmetic copies; a bare view would be clobbered by the next
+        # group's arena fill before the result is read).
+        self._host_score = score_fn is not None
+        if self._host_score and device is not None:
+            raise ValueError("score_fn scores on the host: pass no device with it")
         # with no card and no device given this raises: a silent CPU run
         # would be read as the card's result
-        self.torch_device = resolve_device(device)
+        self.torch_device = resolve_device("cpu" if self._host_score else device)
         self.config = config if config is not None else RuntimeConfig()
         self.interner = interner if interner is not None else Interner()
         self.tenants = validate_tenants(self.config, model_state, use_native_ingest)
@@ -385,6 +410,15 @@ class Service:
                 "one interner namespace; per-tenant export is a roadmap "
                 "follow-on"
             )
+        if self.config.engine_backend == "native":
+            # build and load the native library here, once, before any
+            # worker runs: a process pool spawns its workers while the
+            # partitions are built below and each worker loads the same
+            # file, and a build that fails raises from this constructor,
+            # not inside an l7 worker or as worker crashes
+            from alaz_tpu_torch.graph import native
+
+            native._load()
         self.partitions: List[TenantPartition] = []
         for t in range(self.tenants):
             self.partitions.append(
@@ -429,12 +463,16 @@ class Service:
         if self.score_sink is None and export_backend is not None and hasattr(export_backend, "persist_scores"):
             # scores flow back to the backend's /anomalies/ stream by default
             self.score_sink = export_backend.persist_scores
-        if model_state is not None:
+        if model_state is not None and not self._host_score:
             model_state = model_state.to(self.torch_device)
         self.model_state = model_state
         self._score_fn = None
         self._tgn_memory = None  # temporal model node memory (tgn only)
-        if model_state is not None:
+        if model_state is not None and score_fn is not None:
+            # host scorer override: no model, no kernels — the scorer
+            # loop runs the callable over numpy graphs
+            self._score_fn = score_fn
+        elif model_state is not None:
             if self.config.model.model == "tgn":
                 from alaz_tpu_torch.models import tgn
 
@@ -474,7 +512,12 @@ class Service:
             and self._batch_windows > 1
             and self.config.model.model != "tgn"
         ):
-            self._score_many_fn = _batched_score_fn(self.config.model)
+            if self._host_score:
+                # group scoring only when the override supplies its
+                # stacked twin; otherwise windows score serially
+                self._score_many_fn = score_many_fn
+            else:
+                self._score_many_fn = _batched_score_fn(self.config.model)
         # cross-tenant batching accounting: dispatches vs
         # windows is the group-occupancy number `bench.py --tenants`
         # publishes (K fleets on one backend should fill groups that K
@@ -931,10 +974,15 @@ class Service:
                     (batches[0].n_pad, batches[0].e_pad), cols
                 )
                 t_arena = time_module.perf_counter()
-                # on the CPU ``.to`` returns the arena itself: the group
-                # fn's outputs are new tensors, so the arena's next fill
-                # cannot clobber a result before it is read
-                stacked = {k: v.to(self.torch_device, non_blocking=True) for k, v in arena.items()}
+                if self._host_score:
+                    # host scorer: the arena IS the stacked input — no
+                    # copy to a device exists to issue
+                    stacked = {k: v.numpy() for k, v in arena.items()}
+                else:
+                    # on the CPU ``.to`` returns the arena itself: the group
+                    # fn's outputs are new tensors, so the arena's next fill
+                    # cannot clobber a result before it is read
+                    stacked = {k: v.to(self.torch_device, non_blocking=True) for k, v in arena.items()}
                 t_xfer = time_module.perf_counter()
                 stage_s = t_xfer - t0
                 out = self._score_many_fn(self.model_state, stacked)
@@ -1054,7 +1102,8 @@ class Service:
                     # group path gets from its arena fill
                     cols = batch.device_arrays(self.config.model.edge_layout)
                     t_arena = time_module.perf_counter()
-                    graph = self._to_device(batch, cols)
+                    # a host scorer takes the numpy columns: no copy
+                    graph = cols if self._host_score else self._to_device(batch, cols)
                     t_xfer = time_module.perf_counter()
                     dt = t_xfer - t0
                     self._scorer_busy_s += dt
@@ -1239,16 +1288,11 @@ class Service:
             from alaz_tpu_torch.ops import _build
 
             _build.library()
-        # the native library, where the config asks for it, is built and
-        # loaded here too, so that a library that cannot be built raises
-        # from start() and not inside a worker; the window close groups in
-        # C++ where the library builds and in numpy otherwise (the
-        # auto-detect), and says once which serves
+        # the window close groups in C++ where the native library builds
+        # and in numpy otherwise (the auto-detect), and says once which
+        # serves
         from alaz_tpu_torch.graph import builder as graph_builder
 
-        for part in self.partitions:
-            if part.sharded is None and part.aggregator._use_native_engine():
-                part.aggregator._native_l7_engine()
         log.info(
             "window close grouping: "
             + ("C++ (libalaz_ingest)" if graph_builder._use_native_grouping() else "numpy")

@@ -192,11 +192,33 @@ class TenantPartition:
                     "chaos soak enabled: worker-seam fault injection live"
                 )
             if ingest_backend == "process":
-                raise ValueError(
-                    "ingest_backend=process: the shared-memory process pool "
-                    "(shm/) is not ported to alaz_tpu_torch yet (ROADMAP §1 "
-                    "item 3, native, sharded and process ingest); run "
-                    "INGEST_BACKEND=thread"
+                from alaz_tpu_torch.shm.process_pool import ProcessShardedIngest
+
+                if export_backend is not None:
+                    # worker REQUEST rows carry process-LOCAL interner
+                    # ids — an export tee would resolve them against the
+                    # wrong table and ship another fleet's names. Refuse
+                    # loudly; the thread backend keeps the tee.
+                    raise ValueError(
+                        "ingest_backend=process cannot drive the export "
+                        "backend tee (worker rows carry process-local "
+                        "interner ids); use INGEST_BACKEND=thread with "
+                        "the export backend, or export from scores"
+                    )
+                self.sharded = ProcessShardedIngest(
+                    ingest_workers,
+                    interner=self.interner,
+                    config=config,
+                    window_s=config.window_s,
+                    on_batch=on_batch,
+                    renumber=renumber,
+                    ledger=self.ledger,
+                    shed_block_s=config.shed_block_s,
+                    fault_hook=self.fault_hook,
+                    degree_cap=degree_cap,
+                    sample_seed=sample_seed,
+                    tracer=self.tracer,
+                    recorder=recorder,
                 )
             else:
                 self.sharded = ShardedIngest(

@@ -45,16 +45,17 @@ Phases, each raising on failure:
                 versions;
    serve     -- the streaming ``Service`` on the card over each test
                 config's replayed traffic, testDuration cut to 3.1 s
-                (hidden 128, 2 layers, bf16, kernels on, window 1 s):
+                (config5's to 2.1 s; hidden 128, 2 layers, bf16, kernels
+                on, window 1 s):
                 GraphSAGE on config5 (100,000 pods, 40,000 edges at 25
                 req/s), GAT banded, renumbered and blocked, and the
                 experts on config3, TGN on config4; traffic in flat out
                 through the ingestion surface (nothing shed), every closed
                 window scored, no worker exception, the kernels' launches
                 per dispatch; each run's windows scored again under the
-                plain versions; GraphSAGE's windows, three times over, as a backlog at
-                ``score_batch_windows=4`` (the group path) against its
-                serial scores; close → score latency, edges/s, arenas,
+                plain versions; GraphSAGE's windows, repeated to
+                twelve, as a backlog at ``score_batch_windows=4`` (the
+                group path) against its serial scores; close → score latency, edges/s, arenas,
                 peak memory, and the same windows through
                 ``WindowScorer``;
    serve native -- the same Service through native ingest: the C++ ingest
@@ -71,6 +72,27 @@ Phases, each raising on failure:
                 busy time a window and duty cycle, drops by cause, peak
                 memory; GraphSAGE's windows scored again with nothing
                 ingesting (the scorer's busy time without ingest load);
+   serve process -- the same Service over the process backend
+                (``INGEST_BACKEND=process``: spawned shard workers over
+                shared-memory rings, each joining in C++): GraphSAGE on
+                config5 at 1 and 4 workers (cut to 1.1 s), GAT banded,
+                renumbered and blocked on config3 at 2 workers; /dev/shm's
+                room for the rings checked first; each worker a live
+                process apart from this one, the native library mapped in
+                it, its log saying it joins in C++, no NVIDIA device file
+                open in it;
+                every window scored, launches per dispatch, scores equal
+                to the plain versions' (max error 0.0), no worker killed,
+                pushed = emitted + ledger exactly; events/s, close →
+                score, busy time and the rings' gauges beside the serve
+                and serve native runs of the same config;
+   tenants   -- ``python -m alaz_tpu_torch.replay --isolation`` (the
+                multi-tenant isolation gate on the host scorer): exit 0;
+                three tenants' traffic into one Service on the process
+                backend scored by GraphSAGE at ``score_batch_windows=8``:
+                groups that mix tenants, K1 2 / K2 1 a group dispatch,
+                exact books a tenant, each tenant's scores equal to its
+                windows scored one at a time on the plain versions;
    train cli -- ``python -m alaz_tpu_torch train --model m`` in this
                 process for each family on the CLI's default replay config
                 (full width, ``ModelConfig.from_env()``; GAT with
@@ -127,6 +149,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -707,13 +730,18 @@ def phase_tgn_slice(batches, device: str = "cuda") -> tuple:
 # ~11,000 (config5) to ~67,000 (config4) events/s on the card's host
 SERVE_DURATION_S = 3.1
 SERVE_RUNS = (
-    # family, replay config, ModelConfig and RuntimeConfig settings
-    ("graphsage", "testconfig/config5_fleet_100k.json", {}, {}),
-    ("gat", "testconfig/config3_10k_mixed.json",
+    # family, replay config, testDuration cut, least windows (every started
+    # second's), ModelConfig and RuntimeConfig settings. The Python engine
+    # takes config5's events at 12,000-19,000/s on the card's host (1.09M
+    # offered a second), so its run is cut to 1.1 s, one full window and
+    # a tenth, as the thread-sharded run is; config3's GAT and experts runs
+    # to 2.1 s, two full windows and a tenth
+    ("graphsage", "testconfig/config5_fleet_100k.json", 1.1, 2, {}, {}),
+    ("gat", "testconfig/config3_10k_mixed.json", 2.1, 3,
      {"model": "gat", "src_gather": "banded", "edge_layout": "blocked"},
      {"renumber_nodes": True, "edge_layout": "blocked"}),
-    ("experts", "testconfig/config3_10k_mixed.json", {"model": "experts"}, {}),
-    ("tgn", "testconfig/config4_temporal.json", {"model": "tgn"}, {}),
+    ("experts", "testconfig/config3_10k_mixed.json", 2.1, 3, {"model": "experts"}, {}),
+    ("tgn", "testconfig/config4_temporal.json", SERVE_DURATION_S, 4, {"model": "tgn"}, {}),
 )
 # K1, K2 and K3 launches of one score dispatch: a window, or a group as one
 SERVE_LAUNCHES = {"graphsage": (2, 1, 0), "gat": (2, 3, 3), "experts": (2, 1, 0), "tgn": (2, 1, 0)}
@@ -760,7 +788,7 @@ def _replay(svc, sim) -> tuple:
 
 
 def _serve_once(cfg, params, sim_cfg=None, backlog=None, device: str = "cuda",
-                use_native_ingest: bool = False) -> dict:
+                use_native_ingest: bool = False, watch=None) -> dict:
     """One run of the streaming Service on the card: replayed traffic
     through ingest → aggregator → window close → scorer (``sim_cfg``,
     flat out), or the closed windows of an earlier run handed to the
@@ -768,7 +796,11 @@ def _serve_once(cfg, params, sim_cfg=None, backlog=None, device: str = "cuda",
     them as a backlog (``backlog``). Launch counts and peak memory are
     read around exactly this run; a worker thread that raises fails the
     phase. ``use_native_ingest`` closes windows in the C++ window
-    accumulator."""
+    accumulator. A process-backed ingest pool is ready before the run
+    starts, so spawning its workers stays outside the numbers. ``watch``,
+    where given, is a context manager factory entered with the service
+    around the run, before the service stops; what it yields is the
+    result's ``"watch"``."""
     from alaz_tpu_torch.events.intern import Interner
     from alaz_tpu_torch.ops import segment_kernels as K
     from alaz_tpu_torch.replay.simulator import Simulator
@@ -780,6 +812,8 @@ def _serve_once(cfg, params, sim_cfg=None, backlog=None, device: str = "cuda",
                   model_state=params, score_threshold=0.0, device=device,
                   use_native_ingest=use_native_ingest)
     on_card = svc.torch_device.type == "cuda"
+    if hasattr(svc.sharded, "wait_ready"):
+        require(svc.sharded.wait_ready(120.0), "the process pool's workers did not report ready")
     svc.score_observer = lambda batch, tenant, lat: (windows.append(batch), latency.append(lat))
     raised, hook = [], threading.excepthook
     threading.excepthook = raised.append
@@ -788,17 +822,19 @@ def _serve_once(cfg, params, sim_cfg=None, backlog=None, device: str = "cuda",
         torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     events = 0
+    watched = None
     t0 = time.perf_counter()
     try:
-        if backlog is not None:
-            for b in backlog:
-                svc.graph_store.on_batch(b)
-        svc.start()
-        if sim_cfg is not None:
-            events, wall = _replay(svc, Simulator(sim_cfg, interner=interner))
-        else:
-            svc.drain(300)
-            wall = time.perf_counter() - t0
+        with (watch(svc) if watch is not None else contextlib.nullcontext()) as watched:
+            if backlog is not None:
+                for b in backlog:
+                    svc.graph_store.on_batch(b)
+            svc.start()
+            if sim_cfg is not None:
+                events, wall = _replay(svc, Simulator(sim_cfg, interner=interner))
+            else:
+                svc.drain(300)
+                wall = time.perf_counter() - t0
     finally:
         svc.stop()
         threading.excepthook = hook
@@ -817,7 +853,7 @@ def _serve_once(cfg, params, sim_cfg=None, backlog=None, device: str = "cuda",
     snap = svc.metrics.snapshot()
     lat = np.array(latency)
     return {
-        "svc": svc, "windows": windows, "scores": {sb.window_start_ms: sb.score for sb in sunk},
+        "svc": svc, "windows": windows, "scores": {sb.window_start_ms: sb.score for sb in sunk}, "watch": watched,
         "summary": {
             "windows_closed": closed,
             "windows_scored": svc.scored_batches,
@@ -891,12 +927,13 @@ def phase_serve(device: str = "cuda", runs=SERVE_RUNS) -> dict:
     """The streaming Service on the card at the JAX package's widths
     (hidden 128, 2 layers, bf16, kernels on, params from seed 0),
     ``window_s`` 1.0, flat-out replay of each run's test config with its
-    testDuration cut to SERVE_DURATION_S. Each run: windows scored equal
-    windows closed, no worker exception, scores finite in [0, 1], the
-    kernels' launches per dispatch; then the same windows re-scored by the
-    Service under the plain versions, scores held together. GraphSAGE
-    also scores the windows of its replay, three times over, as a backlog
-    at ``score_batch_windows=4`` (the group path) against its serial
+    testDuration cut as the run's row says. Each run: at least the row's
+    least windows, windows scored equal windows closed, no worker
+    exception, scores finite in [0, 1], the kernels' launches per
+    dispatch; then the same windows re-scored by the Service under the
+    plain versions, scores held together. GraphSAGE
+    also scores twelve windows (its replay's, repeated) as a backlog at
+    ``score_batch_windows=4`` (the group path) against its serial
     scores.
     Returns the launch counts of each run and each run's entry."""
     from alaz_tpu_torch.config import ModelConfig, RuntimeConfig
@@ -904,8 +941,8 @@ def phase_serve(device: str = "cuda", runs=SERVE_RUNS) -> dict:
     from alaz_tpu_torch.models.registry import init_params
 
     launches, out = {}, {}
-    for family, path, model_kw, runtime_kw in runs:
-        sim_cfg, full_s = _replay_config(path)
+    for family, path, duration_s, least, model_kw, runtime_kw in runs:
+        sim_cfg, full_s = _replay_config(path, duration_s)
         if family == "tgn":  # the memory presized to the largest bucket this fleet can reach
             model_kw = dict(model_kw, tgn_max_nodes=pad_to_bucket(sim_cfg.pod_count + sim_cfg.service_count))
         mcfg = ModelConfig(**model_kw)
@@ -914,13 +951,13 @@ def phase_serve(device: str = "cuda", runs=SERVE_RUNS) -> dict:
         cfg = RuntimeConfig(model=mcfg, window_s=1.0, score_batch_windows=1, **runtime_kw)
         params = init_params(mcfg, key=0, device=device)
         run = _serve_once(cfg, params, sim_cfg=sim_cfg, device=device)
-        require(run["summary"]["windows_scored"] >= 4, f"serve {family}: fewer than 4 windows")
+        require(run["summary"]["windows_scored"] >= least, f"serve {family}: fewer than {least} windows")
         _require_launches(family, run)
         launches[f"serve_{family}"] = run["summary"]["launches"]
         with plain_kernels():
             plain = _serve_once(cfg, params, backlog=run["windows"], device=device)
         entry = {
-            "replay": {"config": path, "testDuration_s": [full_s, SERVE_DURATION_S],
+            "replay": {"config": path, "testDuration_s": [full_s, duration_s],
                        "pods": sim_cfg.pod_count, "services": sim_cfg.service_count,
                        "edges": sim_cfg.edge_count, "rate_per_edge": sim_cfg.edge_rate},
             "model": {k: getattr(mcfg, k) for k in ("model", "src_gather", "edge_layout", "tgn_max_nodes")},
@@ -929,9 +966,9 @@ def phase_serve(device: str = "cuda", runs=SERVE_RUNS) -> dict:
             "vs_plain_versions": _scores_agree(f"serve {family} vs plain", run["scores"], plain["scores"]),
         }
         if family == "graphsage":
-            # the windows three times over: three groups of 4, the third
-            # through the first group's pinned buffer again
-            backlog = run["windows"] * 3
+            # twelve windows (the run's, repeated): three groups of 4, the
+            # third through the first group's pinned buffer again
+            backlog = (run["windows"] * 12)[:12]
             gcfg = dataclasses.replace(cfg, score_batch_windows=4)
             group = _serve_once(gcfg, params, backlog=backlog, device=device)
             gs = group["summary"]
@@ -1024,7 +1061,8 @@ def phase_serve_native(python_runs: dict, device: str = "cuda", runs=SERVE_NATIV
     same config on the Python engine (``python_runs``), and the same
     windows through ``WindowScorer``. GraphSAGE's native windows are also
     scored again as a backlog with nothing ingesting: the scorer's busy
-    time without ingest load. Returns the launch counts of each run."""
+    time without ingest load. Returns the launch counts of each run and
+    each run's host side (``_host_side``), by tag."""
     from alaz_tpu_torch.config import ModelConfig, RuntimeConfig
     from alaz_tpu_torch.graph import builder
     from alaz_tpu_torch.graph.native import NativeWindowedStore
@@ -1032,7 +1070,7 @@ def phase_serve_native(python_runs: dict, device: str = "cuda", runs=SERVE_NATIV
 
     build = _native_build()
     emit("serve_native_build", build)
-    launches = {}
+    launches, host = {}, {}
     for tag, family, path, duration_s, min_windows, model_kw, runtime_kw, native_store in runs:
         sim_cfg, full_s = _replay_config(path, duration_s) if isinstance(path, str) else (path, None)
         mcfg = ModelConfig(**model_kw)
@@ -1079,8 +1117,331 @@ def phase_serve_native(python_runs: dict, device: str = "cuda", runs=SERVE_NATIV
             }
             del idle
         emit(f"serve_native_{tag}", entry)
+        host[tag] = entry["native"]
+        del run, plain, svc
+    return launches, host
+
+
+# -- process ingest and tenants ----------------------------------------------
+
+SERVE_PROCESS_RUNS = (
+    # tag, family, replay config, testDuration cut, least windows, ModelConfig
+    # and RuntimeConfig settings; every run ingests on the process backend
+    # (spawned shard workers over shared-memory rings), each worker
+    # joining in its own C++ L7 engine. Config5 is cut to 1.1 s, as the
+    # thread-sharded run of phase_serve_native is: one full window and a
+    # tenth of one
+    ("graphsage_1_worker", "graphsage", "testconfig/config5_fleet_100k.json", 1.1, 1, {},
+     {"ingest_workers": 1}),
+    ("graphsage_4_workers", "graphsage", "testconfig/config5_fleet_100k.json", 1.1, 1, {},
+     {"ingest_workers": 4}),
+    ("gat_2_workers", "gat", "testconfig/config3_10k_mixed.json", SERVE_DURATION_S, 2,
+     {"model": "gat", "src_gather": "banded", "edge_layout": "blocked"},
+     {"ingest_workers": 2, "renumber_nodes": True, "edge_layout": "blocked"}),
+)
+# the runs of phase_serve_native each process run is set beside
+PROCESS_BESIDE = {"graphsage": ("graphsage", "graphsage_4_workers"), "gat": ("gat",)}
+ENGINE_LINE = re.compile(r"shm shard(\d+) L7 engine backend: native \(loaded=True\)")
+
+
+def _dev_shm_room(workers: int, cfg) -> dict:
+    """``/dev/shm``'s size and free space against what ``workers`` shard
+    workers' rings take (two rings a worker at the config's geometry,
+    every page touched when a ring is made). Too little room fails here:
+    past a tmpfs limit the rings' first touch ends in SIGBUS, and they are
+    never shrunk to fit."""
+    from alaz_tpu_torch.shm.ring import DATA_OFFSET
+
+    st = os.statvfs("/dev/shm")
+    ring = DATA_OFFSET + cfg.shm_slot_bytes * cfg.shm_ring_slots
+    out = {"size_bytes": st.f_blocks * st.f_frsize, "free_bytes": st.f_bavail * st.f_frsize,
+           "ring_bytes": ring, "workers": workers, "need_bytes": 2 * workers * ring}
+    emit("dev_shm", out)
+    require(out["free_bytes"] >= out["need_bytes"],
+            f"/dev/shm has {out['free_bytes']} bytes free of {out['size_bytes']}, and {workers} shard workers' "
+            f"rings need {out['need_bytes']} (2 x {ring} a worker): give the machine a larger /dev/shm")
+    return out
+
+
+@contextlib.contextmanager
+def _stderr_to(path: Path):
+    """File descriptor 2 redirected to ``path``: what this process and the
+    processes it spawns meanwhile log to standard error."""
+    sys.stderr.flush()
+    saved = os.dup(2)
+    with open(path, "wb") as f:
+        os.dup2(f.fileno(), 2)
+    try:
+        yield path
+    finally:
+        sys.stderr.flush()
+        os.dup2(saved, 2)
+        os.close(saved)
+
+
+def _nvidia_fds(pid: int) -> list:
+    """The NVIDIA device files ``pid`` holds open: a process that
+    initialised CUDA holds ``/dev/nvidiactl`` and its card's file (loading
+    ``libcuda`` alone, as ``import torch`` does, opens none)."""
+    fds = Path(f"/proc/{pid}/fd")
+    out = set()
+    for fd in fds.iterdir():
+        try:
+            target = os.readlink(fd)
+        except OSError:  # closed since the listing
+            continue
+        if target.startswith("/dev/nvidia"):
+            out.add(target)
+    return sorted(out)
+
+
+@contextlib.contextmanager
+def _pool_watch(svc):
+    """Around a run on the process backend: the rings' pending slots,
+    sampled every 5 ms (most seen), and, before the service stops, the
+    workers' pids and liveness, whether each has the native library
+    mapped, the NVIDIA device files each (and this process) holds open,
+    the rings' gauges and the respawns."""
+    from alaz_tpu_torch.graph import native
+
+    pool = svc.sharded
+    seen = {"req_pending_slots_max": 0, "resp_pending_slots_max": 0, "samples": 0}
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(0.005):
+            seen["req_pending_slots_max"] = max(seen["req_pending_slots_max"], pool.shm_req_pending())
+            seen["resp_pending_slots_max"] = max(seen["resp_pending_slots_max"], pool.shm_resp_pending())
+            seen["samples"] += 1
+
+    th = threading.Thread(target=sample, name="smoke-ring-sampler", daemon=True)
+    th.start()
+    try:
+        yield seen
+    finally:
+        done.set()
+        th.join(5)
+        lib = Path(native._LIB_PATH).name if native._LIB_PATH else None
+        seen["pids"] = [h.proc.pid for h in pool.workers]
+        seen["alive"] = [h.proc.is_alive() for h in pool.workers]
+        maps = [Path(f"/proc/{pid}/maps").read_text() for pid in seen["pids"]]
+        seen["native_library"] = lib
+        seen["library_mapped"] = [lib is not None and lib in m for m in maps]
+        seen["nvidia_fds"] = [_nvidia_fds(pid) for pid in seen["pids"]]
+        seen["smoke_nvidia_fds"] = _nvidia_fds(os.getpid())
+        seen["ring_stats"] = pool.ring_stats()
+        seen["worker_restarts"] = pool.worker_restarts
+
+
+def phase_serve_process(python_runs: dict, native_host: dict, device: str = "cuda",
+                        runs=SERVE_PROCESS_RUNS) -> dict:
+    """The streaming Service on the card over the process backend
+    (``INGEST_BACKEND=process``, ``ENGINE_BACKEND=native``) at phase_serve's
+    widths: a ``ProcessShardedIngest`` serving, its workers live processes
+    apart from this one, each with the checkout's native library mapped
+    and its log saying it joins in C++, none with the card open; at
+    least the run's least windows closed, every one scored, the kernels'
+    launches per dispatch, the scores equal to the same windows rescored
+    under the plain versions (max error 0.0), no worker killed, and every
+    replayed row in a scored window or in the drop ledger. ``/dev/shm``
+    is checked for the rings' room first. Beside each run, the
+    Python-engine (``python_runs``), native and thread-sharded runs
+    (``native_host``) of the same config. Returns the launch counts."""
+    from alaz_tpu_torch.config import ModelConfig, RuntimeConfig
+    from alaz_tpu_torch.models.registry import init_params
+    from alaz_tpu_torch.shm.process_pool import ProcessShardedIngest
+
+    work = Path("build/chip_smoke")
+    work.mkdir(parents=True, exist_ok=True)
+    launches = {}
+    for tag, family, path, duration_s, min_windows, model_kw, runtime_kw in runs:
+        sim_cfg, full_s = _replay_config(path, duration_s) if isinstance(path, str) else (path, None)
+        mcfg = ModelConfig(**model_kw)
+        require((mcfg.hidden_dim, mcfg.num_layers, mcfg.dtype, mcfg.use_pallas) == (128, 2, "bfloat16", True),
+                f"unexpected ModelConfig {mcfg}")
+        cfg = RuntimeConfig(model=mcfg, window_s=1.0, score_batch_windows=1, ingest_backend="process",
+                            engine_backend="native", **runtime_kw)
+        shm = _dev_shm_room(cfg.ingest_workers, cfg)
+        params = init_params(mcfg, key=0, device=device)
+        log_path = work / f"serve_process_{tag}.log"
+        with _stderr_to(log_path):
+            run = _serve_once(cfg, params, sim_cfg=sim_cfg, device=device, watch=_pool_watch)
+        svc, seen, s = run["svc"], run["watch"], run["summary"]
+        log = log_path.read_text(errors="replace")
+        n = cfg.ingest_workers
+        require(isinstance(svc.sharded, ProcessShardedIngest) and svc.sharded.n == n,
+                f"serve_process {tag}: not a ProcessShardedIngest of {n} workers")
+        require(all(seen["alive"]) and len(set(seen["pids"])) == n and os.getpid() not in seen["pids"],
+                f"serve_process {tag}: workers {seen['pids']} alive {seen['alive']}")
+        require(all(seen["library_mapped"]), f"serve_process {tag}: {seen['native_library']} not in every worker")
+        require(sorted(int(i) for i in ENGINE_LINE.findall(log)) == list(range(n))
+                and "falling back to the python L7 engine" not in log,
+                f"serve_process {tag}: the workers' logs do not each say native (see {log_path})")
+        require(not any(seen["nvidia_fds"]), f"serve_process {tag}: a worker opened the card: {seen['nvidia_fds']}")
+        require(s["windows_scored"] >= min_windows, f"serve_process {tag}: fewer than {min_windows} windows")
+        _require_launches(family, run)
+        reasons = s["ledger"].get("reasons", {})
+        require(seen["worker_restarts"] == 0 and not any(r.startswith("dropped/shm") for r in reasons),
+                f"serve_process {tag}: a worker died: restarts {seen['worker_restarts']}, {reasons}")
+        emitted = sum(b.aggregated_rows() for b in run["windows"])
+        gap = svc.ledger.conservation_gap(s["events"], emitted)
+        require(gap == 0, f"serve_process {tag}: pushed {s['events']} != emitted {emitted} + ledger "
+                          f"{svc.ledger.total} (gap {gap})")
+        launches[f"serve_process_{tag}"] = s["launches"]
+        # the plain versions score the windows as a backlog: no ingest, so
+        # no pool to spawn for it
+        rescore = dataclasses.replace(cfg, ingest_backend="thread", ingest_workers=1)
+        with plain_kernels():
+            plain = _serve_once(rescore, params, backlog=run["windows"], device=device)
+        vs_plain = _scores_agree(f"serve_process {tag} vs plain", run["scores"], plain["scores"])
+        require(vs_plain["max_abs_err"] == 0.0, f"serve_process {tag}: scores differ from the plain versions' "
+                                                 f"by {vs_plain['max_abs_err']}")
+        entry = {
+            "replay": {"config": path if isinstance(path, str) else None,
+                       "testDuration_s": [full_s, sim_cfg.test_duration_s],
+                       "pods": sim_cfg.pod_count, "edges": sim_cfg.edge_count, "rate_per_edge": sim_cfg.edge_rate},
+            "runtime": dict(runtime_kw, ingest_backend="process", engine_backend="native"),
+            "model": {k: getattr(mcfg, k) for k in ("model", "src_gather", "edge_layout")},
+            "dev_shm": shm, "workers": {k: seen[k] for k in ("pids", "library_mapped", "nvidia_fds")},
+            "smoke_nvidia_fds": seen["smoke_nvidia_fds"],
+            "conservation": {"pushed": s["events"], "emitted": emitted, "ledger": svc.ledger.total, "gap": gap},
+            "rings": {k: seen[k] for k in ("req_pending_slots_max", "resp_pending_slots_max", "samples",
+                                           "ring_stats")},
+            "serial": s,
+            "process": _host_side(s, svc.metrics.snapshot()),
+            "vs_plain_versions": vs_plain,
+            "window_scorer": _window_scorer_times(mcfg, params, run["windows"], device),
+            "log": str(log_path),
+        }
+        py = python_runs.get(family)
+        entry["beside"] = {"python_engine": _host_side(py["serial"]) if py is not None else None,
+                           **{f"native_{t}": native_host.get(t) for t in PROCESS_BESIDE[family]}}
+        emit(f"serve_process_{tag}", entry)
         del run, plain, svc
     return launches
+
+
+def _feed_tenants(svc, tenant_traffic) -> dict:
+    """Each tenant's stream into its partition's aggregator on this thread,
+    deliveries round-robin across tenants (as a fleet of agents sends
+    them), then every window closed; returns the L7 rows pushed a tenant."""
+    aggs = {t: svc.partitions[t].aggregator for t in tenant_traffic}
+    for t, (kube, traffic) in tenant_traffic.items():
+        for m in kube:
+            aggs[t].process_k8s(m)
+        if traffic.tcp is not None and len(traffic.tcp):
+            aggs[t].process_tcp(traffic.tcp)
+    for i in range(max(len(tr.deliveries) for _, tr in tenant_traffic.values())):
+        for t, (_, traffic) in tenant_traffic.items():
+            if i < len(traffic.deliveries):
+                d = traffic.deliveries[i]
+                for kind, payload in d.pre:
+                    if kind == "k8s":
+                        for m in payload:
+                            aggs[t].process_k8s(m)
+                    else:
+                        aggs[t].process_tcp(payload)
+                aggs[t].process_l7(d.batch)
+    svc.flush_windows()
+    return {t: traffic.total_rows for t, (_, traffic) in tenant_traffic.items()}
+
+
+TENANTS = 3
+TENANT_WINDOWS = 4  # windows of each tenant's traffic (replay/tenants.py)
+TENANT_GROUP_W = 8  # a group of 8 of 3 tenants' 4 windows each mixes tenants
+
+
+def phase_tenants(device: str = "cuda") -> dict:
+    """Multi-tenant serving. The isolation gate as a user runs it
+    (``python -m alaz_tpu_torch.replay --isolation``, the host scorer: no
+    model, no card; one host-only scenario beside it): exit 0, no
+    finding. Then three tenants' traffic (``replay/tenants.py``'s
+    personalities, seed 0) into one Service on the process backend (a
+    worker a tenant, native engine), scored by GraphSAGE on the card at
+    phase_serve's widths with ``score_batch_windows=8``: windows closed
+    before the scorer starts, so they wait as a backlog and group across
+    tenants. Every group dispatch launches K1 2 / K2 1, at least one
+    group mixes tenants, each tenant's books are exact, and each
+    tenant's scores equal its windows scored one at a time on the plain
+    versions. Returns the launch counts."""
+    from alaz_tpu_torch.config import ModelConfig, RuntimeConfig
+    from alaz_tpu_torch.events.intern import Interner
+    from alaz_tpu_torch.models.registry import init_params
+    from alaz_tpu_torch.ops import segment_kernels as K
+    from alaz_tpu_torch.replay.tenants import make_tenant_traffic
+    from alaz_tpu_torch.runtime.scorer import WindowScorer
+    from alaz_tpu_torch.runtime.service import Service
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "alaz_tpu_torch.replay", "--isolation", "--no-detection",
+                           "--scenarios", "retry_storm", "--workers", "1"],
+                          capture_output=True, text=True, timeout=600)
+    reports = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    require(proc.returncode == 0, f"isolation gate exited {proc.returncode}: {proc.stderr[-2000:]}")
+    iso = [r for r in reports if r.get("scenario") == "multi_tenant_isolation"]
+    require(len(iso) == 1 and iso[0]["scenario_findings"] == 0, f"isolation gate: {reports}")
+    emit("tenants_isolation_gate", dict(iso[0], command_s=time.perf_counter() - t0))
+
+    mcfg = ModelConfig()
+    require((mcfg.hidden_dim, mcfg.num_layers, mcfg.dtype, mcfg.use_pallas) == (128, 2, "bfloat16", True),
+            f"unexpected ModelConfig {mcfg}")
+    cfg = RuntimeConfig(model=mcfg, window_s=1.0, tenants=TENANTS, score_batch_windows=TENANT_GROUP_W,
+                        ingest_backend="process", ingest_workers=1, engine_backend="native")
+    _dev_shm_room(TENANTS, cfg)
+    params = init_params(mcfg, key=0, device=device)
+    traffic = {t: make_tenant_traffic(t, 0, TENANT_WINDOWS) for t in range(TENANTS)}
+    wins, sunk = {t: [] for t in range(TENANTS)}, []
+    svc = Service(config=cfg, interner=Interner(), score_sink=sunk.append, model_state=params,
+                  score_threshold=0.0, device=device)
+    svc.score_observer = lambda batch, tenant, lat: wins[tenant].append(batch)
+    raised, hook = [], threading.excepthook
+    threading.excepthook = raised.append
+    try:
+        for p in svc.partitions:
+            require(type(p.sharded).__name__ == "ProcessShardedIngest" and p.sharded.wait_ready(120.0),
+                    "tenants: a partition's process pool is not ready")
+        pushed = _feed_tenants(svc, traffic)
+        _sync(svc.torch_device)
+        K.reset_launch_counts()
+        t1 = time.perf_counter()
+        svc.start()
+        svc.drain(300)
+        _sync(svc.torch_device)
+        launches = K.launch_counts()
+        wall = time.perf_counter() - t1
+    finally:
+        svc.stop()
+        threading.excepthook = hook
+    require(raised == [], f"tenants: a worker thread raised: {[repr(a.exc_value) for a in raised]}")
+    d, n_windows = svc.score_dispatches, svc.scored_batches
+    require(n_windows == sum(len(w) for w in wins.values()) == len(sunk) == svc.metrics.counter("windows.closed").value,
+            f"tenants: scored {n_windows} windows, sunk {len(sunk)}")
+    require(svc.multi_tenant_groups >= 1 and d < n_windows,
+            f"tenants: {d} dispatches for {n_windows} windows, {svc.multi_tenant_groups} mixing tenants")
+    if svc.torch_device.type == "cuda":
+        require(launches == _counts(2 * d, d, 0, 0), f"tenants: launches {launches} for {d} group dispatches")
+    by_interner = {id(p.interner): p.tenant for p in svc.partitions}
+    scores = {t: {} for t in range(TENANTS)}
+    for sb in sunk:
+        scores[by_interner[id(sb.interner)]][sb.window_start_ms] = sb.score
+    books, agree = {}, {}
+    for t in range(TENANTS):
+        part = svc.partitions[t]
+        emitted = sum(b.aggregated_rows() for b in wins[t])
+        gap = part.ledger.conservation_gap(pushed[t], emitted)
+        require(wins[t] and gap == 0, f"tenants: tenant {t} pushed {pushed[t]}, emitted {emitted}, "
+                                      f"ledger {part.ledger.total}")
+        books[str(t)] = {"pushed": pushed[t], "emitted": emitted, "ledger": part.ledger.snapshot(),
+                         "windows": len(wins[t]), "buckets": sorted({b.bucket_key for b in wins[t]})}
+        with plain_kernels():
+            serial = WindowScorer(mcfg, params, device=device)
+            ref = {b.window_start_ms: serial.score(b) for b in wins[t]}
+        agree[str(t)] = _scores_agree(f"tenants: tenant {t} groups vs serial plain", scores[t], ref)
+    out = {"tenants": TENANTS, "score_batch_windows": TENANT_GROUP_W, "windows": n_windows, "dispatches": d,
+           "multi_tenant_groups": svc.multi_tenant_groups, "launches": launches, "scorer_wall_s": wall,
+           "scorer_busy_s": svc._scorer_busy_s, "books": books, "groups_vs_serial_plain": agree}
+    emit("tenants_groups", out)
+    return {"tenants_groups": launches}
 
 
 SERVE_CLI_MIN_WINDOWS = 2  # the least the JAX package's serve CLI closed (below)
@@ -2172,7 +2533,10 @@ def main() -> int:
     esl, experts_scorer = phase_experts_slice(batches)
     tsl, tgn_scorer = phase_tgn_slice(batches)
     serve_launches, serve_runs = phase_serve()
-    serve_launches.update(phase_serve_native(serve_runs))
+    native_launches, native_host = phase_serve_native(serve_runs)
+    serve_launches.update(native_launches)
+    serve_launches.update(phase_serve_process(serve_runs, native_host))
+    serve_launches.update(phase_tenants())
     train_cli = phase_train_cli()
     phase_serve_cli(train_cli["ckpt"])
     config3 = phase_train_cli_config3()

@@ -7,7 +7,9 @@ windows and epochs): the same exit codes, the same JSON keys and step
 counts, and a ``--ckpt`` written; ``train`` with no card and no
 ``--device`` raises; the smoke's check of a ``train`` run against the
 same run on the plain versions (``chip_smoke._train_cli``), and that it
-catches a wrong backward. The scores themselves are held by
+catches a wrong backward; ``serve`` on paced traffic that neither CLI
+sheds (``tests/torch_serve_cli_compare.py``): the same windows closed,
+nothing lost. The scores themselves are held by
 ``test_torch_scenario.py`` (the windows, ``_stream_tgn_eval``) and
 ``test_torch_train.py`` (the steps).
 """
@@ -117,3 +119,22 @@ def test_smoke_train_cli_catches_a_wrong_backward(small_config, monkeypatch):
     monkeypatch.setattr(K, "_run_k4", lambda *a, **kw: run_k4(*a, **kw) * 0.5)
     with pytest.raises(RuntimeError, match="first update: gradient of"):
         _smoke_train_cli(small_config, "gat")
+
+
+def test_serve_cli_paced_matches(tmp_path):
+    """Both packages' ``serve`` CLIs (no checkpoint, each in its own
+    process) on config4's traffic cut to 3.1 s and 10 requests a second
+    an edge (24,800 events), replayed at the wall clock's pace, a load
+    neither sheds: the same 4 windows closed, nothing lost. Flat out
+    (config4's 496,000 events in 3.1 s) both shed at the L7 queue's
+    mouth by amounts that vary from run to run, so only this result is
+    held equal."""
+    from tests.torch_serve_cli_compare import REPO, cut_traffic, run_once
+
+    raw = json.loads((REPO / "testconfig/config4_temporal.json").read_text())
+    traffic = tmp_path / "traffic.json"
+    traffic.write_text(json.dumps(cut_traffic(raw, 3.1, edge_rate=10)))
+    ref = run_once("alaz_tpu", str(traffic), paced=True)
+    got = run_once("alaz_tpu_torch", str(traffic), paced=True)
+    assert ref["events_lost"] == got["events_lost"] == 0
+    assert ref["windows_closed"] == got["windows_closed"] == 4

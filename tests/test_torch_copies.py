@@ -7,8 +7,8 @@ parsed, the copy's imports of ``alaz_tpu_torch`` are renamed back to
 reach the tree; docstrings, names, strings and every statement do. The
 only differences allowed are listed per module below:
 
-- ``raises``: a branch the port does not carry yet (process ingest, the
-  chaos suite's frame and export legs). Its body
+- ``raises``: a branch the port does not carry yet (the chaos suite's
+  frame and export legs). Its body
   in the copy must be one ``raise ValueError(...)`` naming the ROADMAP
   item that will port it; the branch's test stays as in the JAX source.
 - ``ported``: a definition written for torch or the card (the device
@@ -77,9 +77,7 @@ COPIES = {
     "obs/spans.py": {},
     "obs/scores.py": {},
     "obs/device.py": {"dropped": {"CompileEventPlane", "_metric_safe"}},
-    "runtime/tenancy.py": {
-        "raises": [("TenantPartition.__init__", "ingest_backend == 'process'")],
-    },
+    "runtime/tenancy.py": {},
     "runtime/metrics.py": {
         "ported": {"device_gauges", "_DEVICE_MEM_KEYS"},
         "added": {"_cuda_stat", "_cuda_total", "_cuda_free"},
@@ -99,7 +97,6 @@ COPIES = {
     "chaos/injectors.py": {},
     "chaos/harness.py": {
         "raises": [
-            ("_run_pipeline_leg", "backend == 'process'"),
             ("_run_frame_leg", None),
             ("_run_backend_leg", None),
         ],
@@ -110,9 +107,16 @@ COPIES = {
     "replay/scenario.py": {},
     # the detection legs train and score on the caller's device
     "replay/incidents.py": {"ported": {"run_detection_leg", "run_incident_scenario", "run_scenario_suite"}},
-    # --device, and --isolation (replay/tenants.py) raises
+    # --device for the detection legs
     "replay/__main__.py": {"ported": {"main"}},
     "train/__init__.py": {},
+    "shm/__init__.py": {},
+    "shm/ring.py": {},
+    "shm/codec.py": {},
+    "shm/worker.py": {},
+    "shm/process_pool.py": {},
+    # the module docstring names the port's CLI
+    "replay/tenants.py": {"ported": {"<module docstring>"}},
 }
 
 
@@ -231,14 +235,22 @@ def test_make_ingest_trace_is_a_copy():
 
 
 def test_left_out_ingest_planes_raise():
+    """Every ingest plane is ported now: the process backend (at one
+    worker and at two), the thread backend and native ingest each build
+    their pipeline."""
     from alaz_tpu_torch.aggregator.sharded import ShardedIngest
     from alaz_tpu_torch.config import RuntimeConfig
     from alaz_tpu_torch.graph.native import NativeWindowedStore
     from alaz_tpu_torch.runtime.tenancy import TenantPartition
+    from alaz_tpu_torch.shm.process_pool import ProcessShardedIngest
 
-    for cfg in (RuntimeConfig(ingest_backend="process"), RuntimeConfig(ingest_workers=2, ingest_backend="process")):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            TenantPartition(0, cfg, on_batch=lambda b: None)
+    for n in (1, 2):
+        part = TenantPartition(0, RuntimeConfig(ingest_workers=n, ingest_backend="process"), on_batch=lambda b: None)
+        try:
+            assert isinstance(part.sharded, ProcessShardedIngest) and part.sharded.n == n
+            assert part.graph_store is part.sharded and part.aggregator is part.sharded
+        finally:
+            part.sharded.stop()
     # the thread backend is ported: two workers build the sharded pipeline
     part = TenantPartition(0, RuntimeConfig(ingest_workers=2), on_batch=lambda b: None)
     try:
@@ -255,16 +267,21 @@ def test_left_out_ingest_planes_raise():
         part.graph_store.close()
 
 
-def test_left_out_chaos_legs_and_isolation_raise():
+def test_left_out_chaos_legs_and_isolation_raise(capsys):
+    """The chaos suite's frame and export legs still raise; the
+    isolation gate runs (one scenario, host legs only, beside it)."""
+    import json
+
     from alaz_tpu_torch.chaos.harness import run_chaos_suite
     from alaz_tpu_torch.replay.__main__ import main as suite_main
 
-    for kwargs in ({"legs": ("frames",)}, {"legs": ("backend",)},
-                   {"legs": ("pipeline",), "ingest_backend": "process", "n_rows": 512}):
+    for kwargs in ({"legs": ("frames",)}, {"legs": ("backend",)}):
         with pytest.raises(ValueError, match="ROADMAP"):
             run_chaos_suite(seed=0, **kwargs)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        suite_main(["--isolation", "--no-detection"])
+    assert suite_main(["--isolation", "--no-detection", "--scenarios", "retry_storm", "--workers", "1"]) == 0
+    reports = [json.loads(line) for line in capsys.readouterr().out.splitlines() if line.startswith("{")]
+    (iso,) = [r for r in reports if r.get("scenario") == "multi_tenant_isolation"]
+    assert iso["scenario_findings"] == 0 and iso["tenants"] == 3
 
 
 def test_native_grouping_and_engine_raise(tmp_path, monkeypatch):

@@ -627,3 +627,57 @@ def test_native_ingest_service_on_card_matches_plain(dev):
     plain = WindowScorer(cfg.model, init_params(cfg.model, key=0, device="cpu"), device="cpu")
     for b, sb in zip(windows, sunk):
         np.testing.assert_allclose(sb.score, plain.score(b), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("workers,batch_windows", [(1, 1), (2, 1), (2, 4)])
+def test_process_ingest_service_on_card_matches_plain(dev, workers, batch_windows):
+    """A small replay served on the card over the process backend (spawned
+    shard workers over shared-memory rings, each joining in C++), serially
+    and as a backlog group: every closed window scored, K1 twice and K2
+    once a dispatch, every row in a scored window or the ledger; each
+    window scored again on the CPU through the plain versions, f32, within
+    the f32 oracle's 1e-4."""
+    import threading
+
+    from alaz_tpu_torch.config import ModelConfig, RuntimeConfig, SimulationConfig
+    from alaz_tpu_torch.events.intern import Interner
+    from alaz_tpu_torch.models.registry import init_params
+    from alaz_tpu_torch.replay.simulator import Simulator
+    from alaz_tpu_torch.runtime.scorer import WindowScorer
+    from alaz_tpu_torch.runtime.service import Service
+
+    cfg = RuntimeConfig(model=ModelConfig(dtype="float32"), engine_backend="native", ingest_backend="process",
+                        ingest_workers=workers, score_batch_windows=batch_windows)
+    interner, sunk, windows, raised = Interner(), [], [], []
+    svc = Service(config=cfg, interner=interner, score_sink=sunk.append,
+                  model_state=init_params(cfg.model, key=0, device="cuda"),
+                  score_threshold=0.0, device="cuda")
+    svc.score_observer = lambda batch, tenant, lat: windows.append(batch)
+    hook, threading.excepthook = threading.excepthook, raised.append
+    pushed = 0
+    try:
+        assert type(svc.sharded).__name__ == "ProcessShardedIngest" and svc.sharded.wait_ready(60.0)
+        sim = Simulator(SimulationConfig(test_duration_s=3.0, **_CARD_SIM), interner=interner)
+        for m in sim.setup():
+            svc.aggregator.process_k8s(m)
+        svc.aggregator.process_tcp(sim.tcp_events())
+        for b in sim.iter_l7_batches():
+            svc.aggregator.process_l7(b)
+            pushed += b.shape[0]
+        svc.flush_windows()
+        K.reset_launch_counts()
+        svc.start()
+        svc.drain(timeout_s=120)
+    finally:
+        svc.stop()
+        threading.excepthook = hook
+    assert raised == [] and svc.sharded.worker_restarts == 0
+    assert svc.scored_batches == svc.metrics.counter("windows.closed").value == len(sunk) == 3
+    if batch_windows > 1:
+        assert svc.score_dispatches == 1
+    assert K.launch_counts()["scatter_sum_sorted"] == 2 * svc.score_dispatches
+    assert K.launch_counts()["segment_expand_sorted"] == svc.score_dispatches
+    assert svc.ledger.conservation_gap(pushed, sum(b.aggregated_rows() for b in windows)) == 0
+    plain = WindowScorer(cfg.model, init_params(cfg.model, key=0, device="cpu"), device="cpu")
+    for b, sb in zip(windows, sunk):
+        np.testing.assert_allclose(sb.score, plain.score(b), rtol=1e-4, atol=1e-4)

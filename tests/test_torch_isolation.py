@@ -60,3 +60,9 @@ def test_importing_every_module_loads_no_jax():
         "alaz_tpu_torch.chaos", "alaz_tpu_torch.chaos.harness", "alaz_tpu_torch.chaos.injectors",
         "alaz_tpu_torch.__main__",
     } <= set(modules)
+    # the process backend and the isolation gate
+    assert {
+        "alaz_tpu_torch.shm", "alaz_tpu_torch.shm.ring", "alaz_tpu_torch.shm.codec", "alaz_tpu_torch.shm.worker",
+        "alaz_tpu_torch.shm.process_pool", "alaz_tpu_torch.replay.tenants",
+    } <= set(modules)
+

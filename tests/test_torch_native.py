@@ -435,9 +435,8 @@ def test_grouping_auto_detect_falls_back_to_numpy(no_compiler):
 def test_service_asked_for_the_native_engine_raises_at_start(no_compiler):
     from alaz_tpu_torch.runtime.service import Service
 
-    svc = Service(config=RuntimeConfig(engine_backend="native"), interner=Interner(), device="cpu")
+    # the constructor builds the library, before any worker exists
     with pytest.raises(RuntimeError, match="no-such-g\\+\\+"):
-        svc.start()
-    assert svc._threads == []
+        Service(config=RuntimeConfig(engine_backend="native"), interner=Interner(), device="cpu")
     with pytest.raises(RuntimeError, match="no-such-g\\+\\+"):
         Service(config=RuntimeConfig(), interner=Interner(), use_native_ingest=True, device="cpu")
