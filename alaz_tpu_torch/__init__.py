@@ -19,12 +19,19 @@ the same way so each module has an obvious twin:
   debug HTTP server
 - ``alaz_tpu_torch.convert``  — params and graphs carried in from numpy
 - ``python -m alaz_tpu_torch serve`` — the service over replayed traffic
+  or live sources: agents' frames on the ingest socket, the Kubernetes
+  watch, HTTP export to a backend and its health checker
+- ``python -m alaz_tpu_torch.chaos`` — the chaos suite
 
 The host plane the service runs on is the JAX package's, copied:
-``events``, ``protocols``, ``utils``, ``logging``, ``datastore``,
-``aggregator``, ``graph.builder``, ``config``, ``obs``, ``replay.simulator``
-and ``sources``.
+``events``, ``protocols``, ``utils``, ``logging``, ``datastore``
+(``backend`` included), ``aggregator``, ``graph.builder``, ``config``,
+``obs``, ``replay.simulator``, ``runtime.health`` and ``sources``.
 
 The package imports torch and numpy only. Entry points take ``device=``;
 with none given they run on ``cuda`` and raise when there is no card.
 """
+
+__version__ = "0.1.0"
+
+__all__ = ["__version__"]

@@ -3,8 +3,8 @@
   python -m alaz_tpu_torch replay [--config ...]        # data-plane acceptance
   python -m alaz_tpu_torch train  [--config ...] [--model graphsage] [--ckpt DIR]
   python -m alaz_tpu_torch eval   [--models graphsage,gat,experts,tgn] [--out F]
-  python -m alaz_tpu_torch serve  --config testconfig/config3_10k_mixed.json \\
-      --flat-out [--ckpt DIR] [--debug-port 8181]
+  python -m alaz_tpu_torch serve  [--config testconfig/config3_10k_mixed.json \\
+      --flat-out] [--ingest-socket PATH] [--ckpt DIR] [--debug-port 8181]
 
 ``train`` and ``eval`` take ``--device`` (as does ``serve``) and run on
 the card unless ``--device cpu`` is given; with no card they raise. Each
@@ -14,17 +14,25 @@ subcommand keeps the JAX package's flags, defaults and exit codes:
 from the environment (``ModelConfig.from_env``: ``MODEL``,
 ``HIDDEN_DIM``, ``SRC_GATHER``, ``EDGE_FEAT_ZNORM``, ...).
 
-``serve`` runs the streaming scoring ``Service`` over replayed traffic:
-replay source → aggregator → window close → scorer (the model through
-the hand-written kernels) → score plane → score sink. Runtime settings
-come from the environment as in the JAX package (``RuntimeConfig.
-from_env``: ``EDGE_LAYOUT``, ``RENUMBER_NODES``, ``SCORE_BATCH_WINDOWS``,
-``INGEST_WORKERS``, ...). Without ``--ckpt`` the service closes and
-traces windows and scores nothing, as the JAX package's does. At the
-end it prints one JSON line: windows closed and scored, dispatches,
-edges scored, and events replayed and lost (the drop ledger: flat out,
-the replay offers traffic faster than the Python aggregator takes it,
-and the source queues shed what does not fit, as in the JAX package).
+``serve`` runs the streaming scoring ``Service``: sources → aggregator →
+window close → scorer (the model through the hand-written kernels) →
+score plane → score sink. With ``--config`` the source is replayed
+traffic; without it the service runs live, as the JAX package's does:
+agents' frames on the unix socket of ``--ingest-socket`` (default
+``$INGEST_SOCKET``), pods and services from the Kubernetes watch
+(in-cluster, or ``K8S_API_SERVER``), request rows and scores exported to
+``BACKEND_HOST`` over HTTP with the health checker pausing and resuming
+the service, and the procfs backfill and CRI container index under
+``LOCAL_PIDS``; it serves until interrupted (SIGINT). Runtime settings
+come from the environment (``RuntimeConfig.from_env``: ``EDGE_LAYOUT``,
+``RENUMBER_NODES``, ``SCORE_BATCH_WINDOWS``, ``INGEST_WORKERS``, ...).
+Without ``--ckpt`` the service closes and traces windows and scores
+nothing, as the JAX package's does. At the end it prints one JSON line:
+windows closed and scored, dispatches, edges scored, events taken in
+(replayed, or the rows of the ingest socket's accepted frames) and lost
+(the drop ledger: flat out, the replay offers traffic faster than the
+Python aggregator takes it, and the source queues shed what does not
+fit, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -298,20 +306,6 @@ def cmd_eval(args) -> int:
     return 0 if gate else 1
 
 
-def _refuse_live_sources(cfg) -> None:
-    """The live sources, the HTTP export backend and the health checker
-    are not ported yet (so ``--config`` is required): a setting that asks
-    for one raises, naming the ROADMAP item that will bring it, rather
-    than serving without it."""
-    item = "ROADMAP §1 item 4 (the live sources, datastore/backend.py export and runtime/health.py)"
-    if cfg.backend.host:
-        raise ValueError(f"BACKEND_HOST is set: the HTTP export backend and health checker are not ported yet, {item}")
-    if os.environ.get("INGEST_SOCKET"):
-        raise ValueError(f"INGEST_SOCKET is set: the ingest socket is not ported yet, {item}")
-    if cfg.local_pids:
-        raise ValueError(f"LOCAL_PIDS is set: the procfs backfill and the CRI container index are not ported yet, {item}")
-
-
 def _load_params(path: str, model_cfg):
     from alaz_tpu_torch.models.registry import init_params
     from alaz_tpu_torch.train import checkpoint
@@ -323,43 +317,138 @@ def _load_params(path: str, model_cfg):
 
 
 def cmd_serve(args) -> int:
-    from alaz_tpu_torch.config import RuntimeConfig, SimulationConfig
+    from alaz_tpu_torch.config import RuntimeConfig
     from alaz_tpu_torch.events.intern import Interner
     from alaz_tpu_torch.runtime.debug_http import DebugServer
+    from alaz_tpu_torch.runtime.health import HealthChecker
     from alaz_tpu_torch.runtime.service import Service
     from alaz_tpu_torch.sources.replay import ReplaySource
 
     cfg = RuntimeConfig.from_env()
-    _refuse_live_sources(cfg)
+    if not args.config and not cfg.local_pids:
+        # Live serve without LOCAL_PIDS: the procfs backfill and zombie
+        # reaper stay off. They are explicit opt-in (LOCAL_PIDS=1, with
+        # PROC_ROOT=/host/proc when containerized) because probing agent
+        # pids against the wrong pid namespace tears down live join state.
+        print(
+            "serve: LOCAL_PIDS not set — procfs backfill and zombie "
+            "reaper disabled (set LOCAL_PIDS=1 and PROC_ROOT if agent "
+            "pids are resolvable on this node)",
+            file=sys.stderr,
+        )
     interner = Interner()
     params = _load_params(args.ckpt, cfg.model) if args.ckpt else None
-    svc = Service(config=cfg, interner=interner, model_state=params, device=args.device)
+
+    export_backend = None
+    if cfg.backend.host:
+        from alaz_tpu_torch.datastore.backend import BatchingBackend, http_transport
+
+        export_backend = BatchingBackend(
+            http_transport(cfg.backend.host), interner, cfg.backend
+        )
+        export_backend.start()
+
+    svc = Service(
+        config=cfg, interner=interner, model_state=params,
+        export_backend=export_backend, device=args.device,
+    )
+    # pre-existing connections join immediately on restart (reference
+    # rebuilds state from /proc; replay configs have no live procfs)
+    containers = None
+    if cfg.local_pids:
+        svc.aggregator.backfill_from_proc()
+        # live container index over CRI when a runtime socket answers
+        # (cri.go:39-73); replay mode has no runtime
+        from alaz_tpu_torch.sources.containers import ContainerIndex
+        from alaz_tpu_torch.sources.cri import CriContainerLister, probe_runtime_socket
+
+        cri_sock = probe_runtime_socket()
+        if cri_sock:
+            containers = ContainerIndex(lister=CriContainerLister(cri_sock))
+            containers.start(svc)
     svc.start()
+    # live k8s informers (k8s/informer.go:67-157): in-cluster discovery
+    # by default, K8S_API_SERVER override for tests/out-of-cluster.
+    # Replay configs carry their own k8s messages, so live serve only.
+    k8s_src = None
+    if cfg.k8s_enabled and not args.config:
+        from alaz_tpu_torch.sources.k8s_watch import K8sWatchSource
+
+        k8s_src = K8sWatchSource(
+            exclude_namespaces=[
+                ns.strip() for ns in cfg.exclude_namespaces.split(",") if ns.strip()
+            ],
+            api_server=cfg.k8s_api_server or None,
+            token_file=cfg.k8s_token_file or None,
+            ca_file=cfg.k8s_ca_file or None,
+        )
+        k8s_src.start(svc)
+        if k8s_src.live:
+            print("k8s informers watching", file=sys.stderr)
+    ingest_srv = None
+    if args.ingest_socket:
+        from alaz_tpu_torch.sources.ingest_server import IngestServer
+
+        ingest_srv = IngestServer(svc, path=args.ingest_socket)
+        ingest_srv.start()  # self-registers its ingest_socket.* gauges
+        print(f"ingest socket at {args.ingest_socket}", file=sys.stderr)
     debug = DebugServer(svc, port=args.debug_port)
     debug.start()
-    src = ReplaySource(SimulationConfig.from_json(args.config), interner, realtime=not args.flat_out)
-    src.start(svc)
+    hc = None
+    if cfg.backend.host:
+        from alaz_tpu_torch.datastore.backend import http_transport
+
+        hc = HealthChecker(
+            http_transport(cfg.backend.host),
+            on_stop=svc.pause,
+            on_resume=svc.resume,
+            metrics_snapshot=svc.metrics.snapshot,
+        )
+        hc.start()
+    src = None
+    if args.config:
+        src = ReplaySource(_sim_config(args.config), interner, realtime=not args.flat_out)
+        src.start(svc)
     print(f"serving; debug http on :{debug.port}", file=sys.stderr)
     t0 = time.perf_counter()
     try:
-        # bounded-join poll: signals stay deliverable while replay runs
-        while src.alive():
-            src.join(1.0)
-        svc.drain(30)
-        svc.flush_windows()
-        svc.drain(30)
+        if src is not None:
+            # bounded-join poll: signals stay deliverable while replay runs
+            while src.alive():
+                src.join(1.0)
+            svc.drain(30)
+            svc.flush_windows()
+            svc.drain(30)
+        else:
+            while True:
+                time.sleep(3600)
     except KeyboardInterrupt:
         pass
     finally:
-        src.stop()
+        if src:
+            src.stop()
+        if ingest_srv is not None:
+            ingest_srv.stop()
+        if containers is not None:
+            containers.stop()
+        if k8s_src is not None:
+            k8s_src.stop()
+        if hc:
+            hc.stop()
         debug.stop()
         svc.stop()
+        if export_backend is not None:
+            export_backend.stop()
+    if src is not None:
+        events = src.emitted
+    else:
+        events = ingest_srv.records if ingest_srv is not None else 0
     print(json.dumps({
         "windows_closed": svc.metrics.counter("windows.closed").value,
         "windows_scored": svc.scored_batches,
         "score_dispatches": svc.score_dispatches,
         "edges_scored": svc.scored_edges,
-        "events": src.emitted,
+        "events": events,
         "events_lost": svc.ledger.total,
         "seconds": time.perf_counter() - t0,
     }))
@@ -384,11 +473,16 @@ def main(argv=None) -> int:
     pt.add_argument("--device", default=None, help="cuda (default) or cpu")
     pt.set_defaults(fn=cmd_train)
 
-    ps = sub.add_parser("serve", help="run the streaming scoring service over replayed traffic")
-    ps.add_argument("--config", required=True, help="replay traffic config (testconfig/*.json)")
+    ps = sub.add_parser("serve", help="run the streaming scoring service")
+    ps.add_argument("--config", default=None, help="replay traffic config (omit for external ingest)")
     ps.add_argument("--ckpt", default=None, help="a checkpoint directory of train/checkpoint.py")
     ps.add_argument("--debug-port", type=int, default=8181)
     ps.add_argument("--flat-out", action="store_true", help="replay without pacing to the wall clock")
+    ps.add_argument(
+        "--ingest-socket", default=os.environ.get("INGEST_SOCKET", ""),
+        help="unix socket for out-of-process agents (frame protocol in "
+        "sources/ingest_server.py)",
+    )
     ps.add_argument("--device", default=None, help="cuda (default) or cpu")
     ps.set_defaults(fn=cmd_serve)
 

@@ -320,11 +320,85 @@ def _run_frame_leg(
     findings: List[str],
     recorder: Optional[FlightRecorder] = None,
 ) -> dict:
-    raise ValueError(
-        "chaos frame leg: the ingest socket (sources/ingest_server.py) is "
-        "not ported to alaz_tpu_torch yet (ROADMAP §1 item 4, live sources, "
-        "export and health); run legs=('pipeline',)"
+    from alaz_tpu_torch.sources.ingest_server import KIND_L7, IngestServer, pack_frame
+
+    n_frames, rows_per_frame = 48, 256
+    ev, _ = make_ingest_trace(
+        n_frames * rows_per_frame, pods=20, svcs=4, windows=2, seed=cfg.seed
     )
+    fchaos = FrameChaos(
+        seed=cfg.seed + 2,
+        corrupt_prob=cfg.frame_corrupt_prob,
+        truncate_prob=cfg.frame_truncate_prob,
+        garble_prob=cfg.frame_garble_prob,
+        min_each=True,
+        expect_frames=n_frames,
+    )
+    ledger = DropLedger()
+    # quarantine decisions land in the suite ring (the ledger hook):
+    # a failing frame gate ships the per-frame drop trail with it
+    ledger.recorder = recorder
+    sink = _CountingSink(ledger)
+    server = IngestServer(sink, port=0)
+    server.start()
+    try:
+        wire = b"".join(
+            fchaos.perturb(
+                pack_frame(KIND_L7, ev[k * rows_per_frame : (k + 1) * rows_per_frame]),
+                rows_per_frame,
+            )
+            for k in range(n_frames)
+        )
+        s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        s.connect(server.address)
+        try:
+            s.sendall(wire)
+        finally:
+            s.close()
+        # one connection carried everything; wait for the serve thread to
+        # drain it (EOF after the last byte)
+        deadline = time.monotonic() + 10.0
+        sent_rows = n_frames * rows_per_frame
+        expect = sent_rows - fchaos.destroyed_rows
+        while time.monotonic() < deadline and sink.rows < expect:
+            time.sleep(0.02)
+    finally:
+        server.stop()
+
+    mutated = fchaos.corrupted + fchaos.garbled + fchaos.truncated
+    if fchaos.truncate_prob == 0.0:
+        # exact contract: header/count corruption destroys only its own
+        # frame — every clean frame survives the resyncs around it
+        if sink.rows != expect:
+            findings.append(
+                f"frames: accepted {sink.rows} rows, expected {expect} "
+                f"(sent {sent_rows}, destroyed {fchaos.destroyed_rows})"
+            )
+    elif sink.rows > expect:
+        findings.append(
+            f"frames: accepted {sink.rows} rows > conservable {expect}"
+        )
+    if mutated and server.quarantined_frames == 0:
+        findings.append(
+            f"frames: {mutated} frames mutated but none quarantined"
+        )
+    if fchaos.corrupted and server.resyncs == 0:
+        findings.append(
+            f"frames: {fchaos.corrupted} headers corrupted but no resync ran"
+        )
+    return {
+        "frames_sent": n_frames,
+        "rows_sent": sent_rows,
+        "rows_accepted": sink.rows,
+        "destroyed_rows": fchaos.destroyed_rows,
+        "corrupted": fchaos.corrupted,
+        "garbled": fchaos.garbled,
+        "truncated": fchaos.truncated,
+        "quarantined_frames": server.quarantined_frames,
+        "resyncs": server.resyncs,
+        "resync_bytes": server.resync_bytes,
+        "ledger": ledger.snapshot(),
+    }
 
 
 def _run_backend_leg(
@@ -332,11 +406,114 @@ def _run_backend_leg(
     findings: List[str],
     recorder: Optional[FlightRecorder] = None,
 ) -> dict:
-    raise ValueError(
-        "chaos backend leg: the HTTP export backend (datastore/backend.py) "
-        "is not ported to alaz_tpu_torch yet (ROADMAP §1 item 4, live "
-        "sources, export and health); run legs=('pipeline',)"
+    from alaz_tpu_torch.datastore.backend import BatchingBackend
+    from alaz_tpu_torch.datastore.dto import make_requests
+
+    clock = [0.0]
+
+    def time_fn() -> float:
+        return clock[0]
+
+    def sleep_fn(s: float) -> None:
+        clock[0] += s
+
+    calls = [0]
+
+    def ok_transport(endpoint, payload) -> int:
+        calls[0] += 1
+        return 200
+
+    flaky = FlakyTransport(
+        ok_transport,
+        seed=cfg.seed + 3,
+        error_prob=cfg.backend_error_prob,
+        timeout_prob=cfg.backend_timeout_prob,
     )
+    ledger = DropLedger()
+    be = BatchingBackend(
+        flaky,
+        Interner(),
+        BackendConfig(
+            batch_size=40,
+            max_retries=1,
+            backoff_min_s=0.05,
+            backoff_max_s=0.2,
+            breaker_threshold=3,
+            breaker_cooldown_s=5.0,
+        ),
+        time_fn=time_fn,
+        sleep_fn=sleep_fn,
+        ledger=ledger,
+    )
+    # breaker open/close flips land in the suite ring, so a failing
+    # backend gate replays WHEN the export leg went dark
+    be.breaker.recorder = recorder
+    appended = 0
+    # phase 1 — DEGRADED: cfg-intensity flapping (some sends fail, some
+    # land; the breaker may or may not trip — either is legal here)
+    for _ in range(6):
+        be.persist_requests(make_requests(40))
+        appended += 40
+        be.pump(force=True)
+        sleep_fn(0.5)
+    # phase 2 — OUTAGE: the backend goes fully dark; the breaker MUST
+    # open within threshold sends and then short the rest (the failure
+    # cost becomes a counter bump, not retries×backoff per batch)
+    flaky.error_prob, flaky.timeout_prob = 1.0, 0.0
+    for _ in range(6):
+        be.persist_requests(make_requests(40))
+        appended += 40
+        be.pump(force=True)
+        sleep_fn(0.5)
+    if be.breaker.opens == 0:
+        findings.append("backend: full outage never opened the circuit breaker")
+    if be.breaker.shorted == 0:
+        findings.append("backend: open breaker never short-circuited a send")
+    # phase 3 — RECOVERY: faults off, cooldown elapses; the half-open
+    # probe must close the circuit and deliveries must resume
+    flaky.heal()
+    sleep_fn(6.0)
+    be.persist_requests(make_requests(40))
+    appended += 40
+    be.pump(force=True)
+    st = be.stats()
+    req = st["requests"]
+    # EXACT conservation through the export leg (ISSUE 12 satellite):
+    # every appended row is sent, still pending, failed on the wire, or
+    # shed by the open breaker — and every shed row is attributed to the
+    # drop ledger's closed `shed` cause, exactly once. The old gate let
+    # breaker sheds hide inside `stream.failed`; now the ledger is the
+    # bookkeeper the rest of the pipeline already answers to.
+    settled = req["sent"] + req["failed"] + req["shed"]
+    if settled + req["pending"] != appended:
+        findings.append(
+            f"backend: rows unaccounted — appended={appended} "
+            f"sent={req['sent']} failed={req['failed']} "
+            f"shed={req['shed']} pending={req['pending']}"
+        )
+    shed_ledgered = ledger.count("shed")
+    if shed_ledgered != req["shed"]:
+        findings.append(
+            f"backend: ledger drift — stream shed {req['shed']} rows but "
+            f"the ledger holds {shed_ledgered} under `shed` (every "
+            "breaker short must attribute exactly once)"
+        )
+    if be.breaker.state != "closed":
+        findings.append(
+            f"backend: breaker stuck {be.breaker.state} after recovery"
+        )
+    return {
+        "appended_rows": appended,
+        "sent": req["sent"],
+        "failed": req["failed"],
+        "shed": req["shed"],
+        "ledger_shed": shed_ledgered,
+        "breaker_opens": be.breaker.opens,
+        "breaker_shorted": be.breaker.shorted,
+        "breaker_state": be.breaker.state,
+        "transport_errors": flaky.errors,
+        "transport_timeouts": flaky.timeouts,
+    }
 
 
 def run_chaos_suite(

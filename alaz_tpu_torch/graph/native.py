@@ -13,7 +13,8 @@ built or loaded, ``_load`` raises with the compiler's output: an explicit
 request for native code (``ENGINE_BACKEND=native``,
 ``use_native_ingest=True``, ``set_native_grouping(True)``) never falls
 back. Only the grouping auto-detect (``graph/builder.py``) catches that
-and groups in numpy.
+and groups in numpy. ``build_agent`` builds the reference agent
+(``native/agent_example.cc``) the same way.
 """
 
 from __future__ import annotations
@@ -187,25 +188,14 @@ def loaded_source_hash() -> Optional[str]:
     return lib.alz_source_hash().decode()
 
 
-def build(force: bool = False) -> Path:
-    """Compile ``native/ingest.cc`` into ``BUILD_DIR`` unless this source
-    was built already; returns the library's path. The file name and the
-    ``ALZ_SOURCE_HASH`` stamp carry the first 16 hex digits of the
-    source's sha256, so an edited source is never shadowed by a stale
-    build. The compiler writes a temporary file that replaces the target
-    in one step, so processes building at once do not race. Raises
-    RuntimeError, with the compiler's output, when the build fails."""
-    import hashlib
-
-    src = _LIB_DIR / "ingest.cc"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"libalaz_ingest-{digest}.so"
-    if out.exists() and not force:
-        return out
+def _compile(src: Path, out: Path, flags: list) -> Path:
+    """Compile ``src`` with g++ (``$CXX``) and ``CXXFLAGS`` plus ``flags``
+    into ``out``, through a temporary file that replaces ``out`` in one
+    step, so processes building at once do not race. Raises RuntimeError,
+    with the compiler's output, when the build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [os.environ.get("CXX") or "g++", *CXXFLAGS,
-           f'-DALZ_SOURCE_HASH="{digest}"', "-shared", "-o", str(tmp), str(src)]
+    cmd = [os.environ.get("CXX") or "g++", *CXXFLAGS, *flags, "-o", str(tmp), str(src)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     except (OSError, subprocess.TimeoutExpired) as exc:
@@ -218,6 +208,44 @@ def build(force: bool = False) -> Path:
         )
     os.replace(tmp, out)
     return out
+
+
+def _source_digest(src: Path) -> str:
+    import hashlib
+
+    return hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+
+
+def build(force: bool = False) -> Path:
+    """Compile ``native/ingest.cc`` into ``BUILD_DIR`` unless this source
+    was built already; returns the library's path. The file name and the
+    ``ALZ_SOURCE_HASH`` stamp carry the first 16 hex digits of the
+    source's sha256, so an edited source is never shadowed by a stale
+    build. Raises RuntimeError, with the compiler's output, when the
+    build fails."""
+    src = _LIB_DIR / "ingest.cc"
+    digest = _source_digest(src)
+    out = BUILD_DIR / f"libalaz_ingest-{digest}.so"
+    if out.exists() and not force:
+        return out
+    return _compile(src, out, [f'-DALZ_SOURCE_HASH="{digest}"', "-shared"])
+
+
+def build_agent(force: bool = False) -> Path:
+    """Compile ``native/agent_example.cc``, the reference out-of-process
+    agent (``agent_example <unix-socket> [n_records] [window_ms0]``), into
+    ``BUILD_DIR`` unless this source was built already; returns the
+    executable's path. As the JAX package's ``make agent`` does, it is
+    stamped ``-DALZ_BIN_STAMP`` with the first 16 hex digits of the
+    source's sha256 (the binary carries ``ALZ_SOURCE_STAMP:<digest>``).
+    Raises RuntimeError, with the compiler's output, when the build
+    fails."""
+    src = _LIB_DIR / "agent_example.cc"
+    digest = _source_digest(src)
+    out = BUILD_DIR / f"agent_example-{digest}"
+    if out.exists() and not force:
+        return out
+    return _compile(src, out, [f'-DALZ_BIN_STAMP="{digest}"'])
 
 
 def _load() -> ctypes.CDLL:

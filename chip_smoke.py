@@ -61,7 +61,8 @@ Phases, each raising on failure:
    serve native -- the same Service through native ingest: the C++ ingest
                 core built with g++ from ``alaz_tpu_torch/native/
                 ingest.cc`` into ``build/alaz_tpu_torch/`` (its source
-                hash checked), GraphSAGE on config5 with the C++ L7 engine
+                hash checked), GraphSAGE on config5 (cut to 1.1 s; config3
+                to 2.1 s) with the C++ L7 engine
                 (``ENGINE_BACKEND=native``) and window accumulator
                 (``use_native_ingest=True``), the same replay through the
                 thread-sharded ingest (4 workers, each joining in C++,
@@ -93,6 +94,26 @@ Phases, each raising on failure:
                 groups that mix tenants, K1 2 / K2 1 a group dispatch,
                 exact books a tenant, each tenant's scores equal to its
                 windows scored one at a time on the plain versions;
+   serve live -- live ingest as deployed, GraphSAGE at full width on the
+                card: config5's pods and services served by a fake
+                Kubernetes API server and taken in through the K8s watch
+                (every message, LIST time printed); an agent's frames of
+                config5's traffic (cut to 1.1 s) flat out over the unix
+                socket into the native engine; request rows and scores
+                exported over HTTP to a local sink, which then answers the
+                health check with 402 and 200 (the Service pauses and
+                resumes); every row sent accounted (server, windows,
+                ledger), every window scored, K1 2 / K2 1 a dispatch, an
+                anomaly row an edge at the sink, scores equal to the plain
+                versions' (max error 0.0); events/s, close → score and busy
+                time beside serve native's; ``agent_example`` (g++, from
+                the checkout) into the C++ window accumulator: three
+                windows scored, equal to the plain versions'; ``python -m
+                alaz_tpu_torch serve --ingest-socket`` with no ``--config``
+                on config3 (cut to 2.1 s), stopped by SIGINT: exit 0, every
+                row in, at least two windows, all scored; ``python -m
+                alaz_tpu_torch.chaos --seed 0``: exit 0, three legs, no
+                finding;
    train cli -- ``python -m alaz_tpu_torch train --model m`` in this
                 process for each family on the CLI's default replay config
                 (full width, ``ModelConfig.from_env()``; GAT with
@@ -993,7 +1014,9 @@ SERVE_NATIVE_RUNS = (
     # tag, family, replay config, testDuration cut, least windows, ModelConfig
     # and RuntimeConfig settings, whether the C++ window accumulator closes
     # the windows
-    ("graphsage", "graphsage", "testconfig/config5_fleet_100k.json", SERVE_DURATION_S, 4, {},
+    # config5 cut to 1.1 s as every other config5 run (the smoke's time:
+    # the serve_live phase adds a minute); config3 to 2.1 s
+    ("graphsage", "graphsage", "testconfig/config5_fleet_100k.json", 1.1, 2, {},
      {"engine_backend": "native"}, True),
     # the thread-sharded ingest: four workers, each joining in C++, the
     # window close grouping in C++ through the numpy builder. It takes
@@ -1002,7 +1025,7 @@ SERVE_NATIVE_RUNS = (
     # tenth of one
     ("graphsage_4_workers", "graphsage", "testconfig/config5_fleet_100k.json", 1.1, 2, {},
      {"engine_backend": "native", "ingest_workers": 4}, False),
-    ("gat", "gat", "testconfig/config3_10k_mixed.json", SERVE_DURATION_S, 4,
+    ("gat", "gat", "testconfig/config3_10k_mixed.json", 2.1, 3,
      {"model": "gat", "src_gather": "banded", "edge_layout": "blocked"},
      {"engine_backend": "native", "renumber_nodes": True, "edge_layout": "blocked"}, True),
 )
@@ -1478,6 +1501,688 @@ def phase_serve_cli(ckpt: Path) -> dict:
     out = dict(summary, command_s=time.perf_counter() - t0)
     emit("serve_cli", out)
     return out
+
+
+# -- live ingest: the agent socket, the K8s watch, HTTP export and health ------
+
+LIVE_CONFIG = "testconfig/config5_fleet_100k.json"
+LIVE_DURATION_S = 1.1  # one full window and a tenth, as serve_process's config5 runs
+LIVE_CLI_CONFIG = "testconfig/config3_10k_mixed.json"
+LIVE_CLI_DURATION_S = 2.1  # two full windows close, the third stays open
+LIVE_L7_FRAME_ROWS = 4096  # an agent's batch: one frame, one writev
+# the queues sized to the burst, as an operator sets them: the K8s queue
+# holds the whole LIST of the cluster (KUBE_EVENTS_BUFFER_SIZE; its
+# default, 1,000 messages, is the reference's channel size, and a
+# 100,000-pod cluster's LIST is 210,000 messages with the pods'
+# containers), the L7 queue the agent's whole flat-out burst
+# (EVENTS_BUFFER_SIZE; config5's 1,100,000 events past its default of
+# 200,000), so nothing sheds and the runs measure the ingest pace
+LIVE_KUBE_EVENTS = 1 << 20
+LIVE_L7_EVENTS = 1 << 21
+# a CLI's TCP worker counts a batch as it starts on it: the agent waits
+# this long more before its requests (config3's 5,000 establishes fold
+# into socket lines in well under it). Requests that outrun their
+# connections retry for 60 ms and then drop (filtered/no_socket), and
+# requests that outrun their pods' K8s messages drop as not_pod: a live
+# agent's order, connections and metadata first, is the service's
+# contract (PERF.md §6)
+LIVE_TCP_SETTLE_S = 0.5
+AGENT_RECORDS = 3000  # agent_example's records: three one-second windows
+
+
+def api_items(msgs) -> dict:
+    """The pods and services of ``msgs`` (``Simulator.setup()``'s) as an
+    API server's LIST items (camelCase, ``resourceVersion``), by path."""
+    from alaz_tpu_torch.events.k8s import ResourceType
+
+    out = {"/api/v1/pods": [], "/api/v1/services": []}
+    for i, m in enumerate(msgs):
+        o = m.object
+        meta = {"uid": o.uid, "name": o.name, "namespace": o.namespace, "resourceVersion": str(i + 1)}
+        if m.resource_type == ResourceType.POD:
+            out["/api/v1/pods"].append({"metadata": meta, "status": {"podIP": o.ip},
+                                        "spec": {"containers": [{"image": o.image}] if o.image else []}})
+        elif m.resource_type == ResourceType.SERVICE:
+            out["/api/v1/services"].append({"metadata": meta, "spec": {
+                "type": o.type or "ClusterIP", "clusterIP": o.cluster_ip, "clusterIPs": list(o.cluster_ips),
+                "ports": [{"name": n, "port": p, "targetPort": t, "protocol": pr} for n, p, t, pr in o.ports]}})
+    return out
+
+
+class FakeApiServer:
+    """A Kubernetes API server on loopback for the K8s watch: each LIST
+    path of ``items`` answers its items (every other kind an empty list),
+    and every WATCH is a quiet stream until ``close()``."""
+
+    def __init__(self, items: dict):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        from urllib.parse import urlsplit
+
+        bodies = {p: json.dumps({"kind": "List", "metadata": {"resourceVersion": str(len(v) + 1)},
+                                 "items": v}).encode() for p, v in items.items()}
+        empty = json.dumps({"kind": "List", "metadata": {"resourceVersion": "1"}, "items": []}).encode()
+        self.release = threading.Event()
+        outer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def do_GET(self):
+                path, _, query = self.path.partition("?")
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                if "watch=1" in query.split("&"):
+                    self.end_headers()
+                    self.wfile.flush()
+                    outer.release.wait(600)
+                    return
+                body = bodies.get(urlsplit(path).path, empty)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.server.daemon_threads = True
+        self.url = f"http://127.0.0.1:{self.server.server_port}"
+        self._thread = threading.Thread(target=self.server.serve_forever, name="smoke-apiserver", daemon=True)
+        self._thread.start()
+
+    def close(self) -> None:
+        self.release.set()
+        self.server.shutdown()
+        self.server.server_close()
+        self._thread.join(10)
+
+
+# the backend sink's server, run as a process of its own (a backend is
+# remote: its JSON decoding must not take the serving process's GIL)
+_SINK_SERVER = r"""
+import json, sys, threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+state = {"rows": {}, "anomaly_windows": {}, "health_status": 200, "health_puts": 0}
+lock = threading.Lock()
+
+
+class Handler(BaseHTTPRequestHandler):
+    def log_message(self, *a):
+        pass
+
+    def _read(self):
+        return json.loads(self.rfile.read(int(self.headers.get("Content-Length") or 0)) or b"null")
+
+    def _reply(self, status, body=b""):
+        self.send_response(status)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def do_GET(self):
+        with lock:
+            body = json.dumps(state).encode()
+        self._reply(200, body)
+
+    def do_POST(self):
+        body, ep = self._read(), self.path.partition("?")[0]
+        with lock:
+            if ep == "/control/":
+                state["health_status"] = int(body["health_status"])
+            else:
+                rows = body.get("data", []) if isinstance(body, dict) else []
+                state["rows"][ep] = state["rows"].get(ep, 0) + len(rows)
+                if ep == "/anomalies/":
+                    for r in rows:
+                        w = str(r[0])
+                        state["anomaly_windows"][w] = state["anomaly_windows"].get(w, 0) + 1
+        self._reply(200)
+
+    def do_PUT(self):
+        self._read()
+        with lock:
+            state["health_puts"] += 1
+            status = state["health_status"]
+        self._reply(status)
+
+
+server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+server.daemon_threads = True
+print(server.server_port, flush=True)
+threading.Thread(target=server.serve_forever, daemon=True).start()
+sys.stdin.read()  # serves until its parent closes the pipe
+"""
+
+
+class BackendSink:
+    """A backend on loopback, in a process of its own: records the rows of
+    every POST by endpoint (``/requests/``, ``/anomalies/``, ...) and the
+    anomaly rows by window, and answers the health checker's PUT
+    ``/healthcheck/`` with the status ``set_health`` gave (402 commands
+    the service to stop). ``snapshot()`` reads what it recorded."""
+
+    def __init__(self):
+        self._proc = subprocess.Popen([sys.executable, "-c", _SINK_SERVER], stdin=subprocess.PIPE,
+                                      stdout=subprocess.PIPE, text=True)
+        line = self._proc.stdout.readline()
+        require(line.strip().isdigit(), f"the backend sink did not start: {line!r}")
+        self.url = f"http://127.0.0.1:{int(line)}"
+
+    def _call(self, method: str, path: str, body=None) -> dict:
+        import urllib.request
+
+        data = None if body is None else json.dumps(body).encode()
+        req = urllib.request.Request(self.url + path, data=data, method=method)
+        with urllib.request.urlopen(req, timeout=30) as r:
+            out = r.read()
+        return json.loads(out) if out else {}
+
+    def set_health(self, status: int) -> None:
+        self._call("POST", "/control/", {"health_status": status})
+
+    def snapshot(self) -> dict:
+        out = self._call("GET", "/")
+        out["anomaly_windows"] = {int(k): v for k, v in out["anomaly_windows"].items()}
+        return out
+
+    def close(self) -> None:
+        if self._proc.poll() is None:
+            self._proc.stdin.close()
+            try:
+                self._proc.wait(10)
+            except subprocess.TimeoutExpired:
+                self._proc.kill()
+                self._proc.wait(10)
+        self._proc.stdout.close()
+
+
+def agent_frames(sim, rows: int = LIVE_L7_FRAME_ROWS) -> tuple:
+    """A Python agent's frames of ``sim``'s traffic (after ``setup()``):
+    the TCP establishes, then the L7 events in frames of ``rows``.
+    Returns (frames, TCP rows, L7 rows)."""
+    from alaz_tpu_torch.sources.ingest_server import KIND_L7, KIND_TCP, pack_frame
+
+    tcp = sim.tcp_events()
+    frames, l7 = [pack_frame(KIND_TCP, tcp)], 0
+    for b in sim.iter_l7_batches():
+        for i in range(0, b.shape[0], rows):
+            frames.append(pack_frame(KIND_L7, b[i:i + rows]))
+        l7 += b.shape[0]
+    return frames, tcp.shape[0], l7
+
+
+def send_frames(path: str, frames) -> float:
+    """``frames`` over one unix-socket connection, flat out; returns the
+    seconds the sends took."""
+    import socket
+
+    s = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    s.settimeout(120)
+    t0 = time.perf_counter()
+    try:
+        s.connect(path)
+        for f in frames:
+            s.sendall(f)
+    finally:
+        s.close()
+    return time.perf_counter() - t0
+
+
+def _until(pred, what: str, timeout_s: float, poll_s: float = 0.01) -> float:
+    t0 = time.perf_counter()
+    while not pred():
+        require(time.perf_counter() - t0 < timeout_s, f"timed out after {timeout_s} s waiting for {what}")
+        time.sleep(poll_s)
+    return time.perf_counter() - t0
+
+
+def scrape(port: int) -> dict:
+    """The debug server's ``/metrics`` as {name: value} and its ``/stats``."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=10) as r:
+        text = r.read().decode()
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats", timeout=10) as r:
+        stats = json.loads(r.read())
+    out = {}
+    for line in text.splitlines():
+        name, _, value = line.partition(" ")
+        if line and not line.startswith("#") and "{" not in name:
+            try:
+                out[name] = float(value)
+            except ValueError:
+                pass
+    return {"metrics": out, "stats": stats}
+
+
+def run_live_cli(module: str, argv: list, env: dict, socket_path: str, frames, rows: int, min_windows: int,
+                 scored: bool, tcp_rows: int = 0, k8s_msgs: int = 0, timeout_s: float = 300.0) -> dict:
+    """``python -m <module> serve --ingest-socket`` as an operator runs it,
+    with no ``--config``: once it serves and has taken in ``k8s_msgs``
+    K8s messages (its debug server's ``k8s_in``), the first frame (the
+    agent's ``tcp_rows`` TCP establishes) sent and taken in (``tcp_in``,
+    then ``LIVE_TCP_SETTLE_S``), the rest flat out; then
+    (read from its debug server) every row taken in, at least
+    ``min_windows`` windows closed and, where ``scored``, scored, the L7
+    queue empty; then SIGINT. Returns its exit code, its standard
+    output's last line, the scrape before the signal and the seconds."""
+    import signal
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", module, "serve", "--ingest-socket", socket_path,
+                             "--debug-port", "0", *argv], env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    out_lines, err_lines, port = [], [], []
+
+    def read_out():
+        out_lines.extend(proc.stdout)
+
+    def read_err():
+        for line in proc.stderr:
+            err_lines.append(line)
+            m = re.search(r"serving; debug http on :(\d+)", line)
+            if m:
+                port.append(int(m.group(1)))
+
+    readers = [threading.Thread(target=fn, name=f"smoke-cli-{fn.__name__}", daemon=True)
+               for fn in (read_out, read_err)]
+    for r in readers:
+        r.start()
+    try:
+        _until(lambda: port or proc.poll() is not None, "the CLI to serve", timeout_s, 0.05)
+        require(proc.poll() is None, f"{module} serve exited {proc.returncode}: {''.join(err_lines)[-3000:]}")
+        if k8s_msgs:
+            _until(lambda: scrape(port[0])["stats"]["aggregator"]["k8s_in"] >= k8s_msgs, "the K8s LIST",
+                   timeout_s, 0.05)
+        if tcp_rows:
+            send_frames(socket_path, frames[:1])
+            _until(lambda: scrape(port[0])["stats"]["aggregator"]["tcp_in"] >= tcp_rows, "the TCP establishes",
+                   timeout_s, 0.05)
+            time.sleep(LIVE_TCP_SETTLE_S)
+            frames = frames[1:]
+        send_s = send_frames(socket_path, frames)
+
+        def settled():
+            snap = scrape(port[0])
+            m, st = snap["metrics"], snap["stats"]
+            closed = m.get("alaz_tpu_windows_closed", 0)
+            return (m.get("alaz_tpu_ingest_socket_records", 0) >= rows and closed >= min_windows
+                    and (not scored or st["scored_batches"] == closed) and st["queues"]["l7"]["pending_batches"] == 0)
+
+        _until(settled, f"{module} serve to take {rows} rows and close {min_windows} windows", timeout_s, 0.2)
+        last = scrape(port[0])
+        proc.send_signal(signal.SIGINT)
+        proc.wait(120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+        for r in readers:
+            r.join(10)
+    return {"exit_code": proc.returncode, "last_line": ("".join(out_lines).strip().splitlines() or [""])[-1],
+            "scrape": last, "send_s": send_s, "command_s": time.perf_counter() - t0,
+            "stderr": "".join(err_lines), "stderr_tail": "".join(err_lines)[-2000:]}
+
+
+def _live_inprocess(native_host: dict, device: str, sim_cfg=None) -> tuple:
+    """Config5's pods from the fake API server through the K8s watch, an
+    agent's frames over the unix socket, request rows and scores exported
+    over HTTP, a stretch of health 402s, GraphSAGE on the card."""
+    from collections import Counter
+
+    from alaz_tpu_torch.config import BackendConfig, ModelConfig, QueueConfig, RuntimeConfig
+    from alaz_tpu_torch.datastore.backend import BatchingBackend, http_transport
+    from alaz_tpu_torch.events.intern import Interner
+    from alaz_tpu_torch.events.k8s import ResourceType
+    from alaz_tpu_torch.events.schema import make_l7_events
+    from alaz_tpu_torch.models.registry import init_params
+    from alaz_tpu_torch.ops import segment_kernels as K
+    from alaz_tpu_torch.replay.simulator import Simulator
+    from alaz_tpu_torch.runtime.health import HealthChecker, HealthState
+    from alaz_tpu_torch.runtime.service import Service
+    from alaz_tpu_torch.sources.ingest_server import IngestServer
+    from alaz_tpu_torch.sources.k8s_watch import K8sWatchSource
+
+    work = Path("build/chip_smoke")
+    work.mkdir(parents=True, exist_ok=True)
+    full_s = None
+    if sim_cfg is None:
+        sim_cfg, full_s = _replay_config(LIVE_CONFIG, LIVE_DURATION_S)
+    sim = Simulator(sim_cfg, interner=Interner())  # the agent's: the service learns names from the watch
+    msgs = sim.setup()
+    t0 = time.perf_counter()
+    frames, tcp_rows, l7_rows = agent_frames(sim)
+    agent_s = time.perf_counter() - t0
+    want = Counter(m.resource_type for m in msgs)
+    want[ResourceType.CONTAINER] = sum(1 for m in msgs if m.resource_type == ResourceType.POD and m.object.image)
+    api, sink = FakeApiServer(api_items(msgs)), BackendSink()
+    mcfg = ModelConfig()
+    require((mcfg.hidden_dim, mcfg.num_layers, mcfg.dtype, mcfg.use_pallas) == (128, 2, "bfloat16", True),
+            f"unexpected ModelConfig {mcfg}")
+    cfg = RuntimeConfig(model=mcfg, window_s=1.0, score_batch_windows=1, engine_backend="native",
+                        queues=dataclasses.replace(QueueConfig(), kube_events=LIVE_KUBE_EVENTS,
+                                                   l7_events=LIVE_L7_EVENTS),
+                        backend=dataclasses.replace(BackendConfig(), host=sink.url))
+    params = init_params(mcfg, key=0, device=device)
+    interner = Interner()
+    backend = BatchingBackend(http_transport(cfg.backend.host), interner, cfg.backend)
+    sunk, windows, latency = [], [], []
+
+    def score_sink(sb):  # the service's default wiring to the backend, recorded
+        sunk.append(sb)
+        backend.persist_scores(sb)
+
+    svc = Service(config=cfg, interner=interner, model_state=params, export_backend=backend,
+                  score_sink=score_sink, score_threshold=0.0, device=device)
+    svc.score_observer = lambda batch, tenant, lat: (windows.append(batch), latency.append(lat))
+    received = Counter()
+    submit_k8s = svc.submit_k8s
+
+    def counting_submit(msg, tenant: int = 0):
+        received[msg.resource_type] += 1
+        return submit_k8s(msg, tenant)
+
+    svc.submit_k8s = counting_submit
+    transitions = []
+
+    def on_stop():
+        transitions.append(HealthState.STOPPED.value)
+        svc.pause()
+
+    def on_resume():
+        transitions.append(HealthState.RUNNING.value)
+        svc.resume()
+
+    hc = HealthChecker(http_transport(cfg.backend.host), interval_s=0.5, on_stop=on_stop, on_resume=on_resume,
+                       metrics_snapshot=svc.metrics.snapshot, degraded_snapshot=svc.degraded_snapshot)
+    k8s_src = K8sWatchSource(api_server=api.url, resync_interval_s=3600.0)
+    srv = IngestServer(svc, path=str(work / "live.sock"))
+    raised, hook = [], threading.excepthook
+    threading.excepthook = raised.append
+    try:
+        backend.start()
+        svc.start()
+        t0 = time.perf_counter()
+        k8s_src.start(svc)
+        _until(lambda: sum(received.values()) >= sum(want.values()), "the K8s LIST", 300)
+        list_s = time.perf_counter() - t0
+        svc.drain(300)
+        k8s_s = time.perf_counter() - t0
+        require(k8s_src.live and dict(received) == dict(want),
+                f"the K8s watch delivered {dict(received)}, setup() has {dict(want)}")
+        require(svc.k8s_queue.dropped == 0, f"{svc.k8s_queue.dropped} K8s messages shed")
+        srv.start()
+        hc.start()
+        # the agent's connections first, taken in before their requests
+        # (the join retries a request for 60 ms, less than a 40,000-row
+        # TCP batch takes: see PERF.md), as phase_serve's replay does
+        send_frames(str(work / "live.sock"), frames[:1])
+        _until(lambda: srv.records >= tcp_rows, "the TCP establishes", 60)
+        svc.drain(300)
+        _sync(svc.torch_device)
+        K.reset_launch_counts()
+        t1 = time.perf_counter()
+        send_s = send_frames(str(work / "live.sock"), frames[1:])
+        _until(lambda: srv.records + srv.quarantined_frames >= tcp_rows + l7_rows or srv.bad_frames,
+               "the ingest server to take every frame", 300)
+        svc.drain(600)
+        svc.flush_windows()
+        svc.drain(600)
+        _sync(svc.torch_device)
+        wall = time.perf_counter() - t1
+        launches = K.launch_counts()
+        # the backend commands a stop (402), then a resume
+        sink.set_health(402)
+        _until(lambda: hc.state == HealthState.STOPPED and svc._paused.is_set(), "the health stop", 30)
+        refused = not svc.submit_l7(make_l7_events(1))
+        sink.set_health(200)
+        _until(lambda: hc.state == HealthState.RUNNING and not svc._paused.is_set(), "the health resume", 30)
+    finally:
+        for stop in (srv.stop, hc.stop, k8s_src.stop, svc.stop, backend.stop, api.close):
+            stop()
+        threading.excepthook = hook
+    try:
+        posted = sink.snapshot()
+    finally:
+        sink.close()
+    require(raised == [], f"serve_live: a thread raised: {[(a.thread.name, repr(a.exc_value)) for a in raised]}")
+    require((srv.bad_frames, srv.quarantined_frames, srv.resyncs, srv.unsupported_frames) == (0, 0, 0, 0),
+            f"serve_live: bad {srv.bad_frames}, quarantined {srv.quarantined_frames}, resyncs {srv.resyncs}")
+    require(srv.records == tcp_rows + l7_rows and srv.frames == len(frames),
+            f"serve_live: the server took {srv.records} rows in {srv.frames} frames, the agent sent "
+            f"{tcp_rows + l7_rows} in {len(frames)}")
+    closed = svc.metrics.counter("windows.closed").value
+    require(closed >= 1 and svc.scored_batches == closed == len(windows) == len(sunk),
+            f"serve_live: scored {svc.scored_batches} of {closed} closed windows")
+    emitted = sum(b.aggregated_rows() for b in windows)
+    gap = svc.ledger.conservation_gap(l7_rows, emitted)
+    require(gap == 0, f"serve_live: L7 rows sent {l7_rows} != emitted {emitted} + ledger {svc.ledger.total}")
+    d = svc.score_dispatches
+    if svc.torch_device.type == "cuda":
+        require(launches == _counts(2 * d, d, 0, 0), f"serve_live: launches {launches} for {d} dispatches")
+    require(transitions == ["stopped", "running"] and refused, f"serve_live: health transitions {transitions}, "
+                                                              f"submit while stopped refused: {refused}")
+    stats = backend.stats()
+    require(posted["rows"].get("/requests/", 0) == stats["requests"]["sent"] > 0
+            and stats["requests"]["failed"] == stats["requests"]["shed"] == 0,
+            f"serve_live: request rows at the sink {posted['rows'].get('/requests/')}, backend {stats['requests']}")
+    per_window = {b.window_start_ms: b.n_edges for b in windows}
+    require(posted["anomaly_windows"] == per_window, f"serve_live: anomaly rows by window "
+                                                     f"{posted['anomaly_windows']}, edges by window {per_window}")
+    scores = {sb.window_start_ms: sb.score for sb in sunk}
+    plain_cfg = dataclasses.replace(cfg, backend=BackendConfig())
+    with plain_kernels():
+        plain = _serve_once(plain_cfg, params, backlog=windows, device=device)
+    vs_plain = _scores_agree("serve_live vs plain", scores, plain["scores"])
+    require(vs_plain["max_abs_err"] == 0.0, f"serve_live: scores differ from the plain versions' by "
+                                             f"{vs_plain['max_abs_err']}")
+    lat = np.array(latency)
+    shed = svc.ledger.snapshot().get("shed", 0)
+    export = _export_cost(interner)
+    live = {
+        "replay": {"config": LIVE_CONFIG if full_s else None, "testDuration_s": [full_s, sim_cfg.test_duration_s],
+                   "pods": sim_cfg.pod_count,
+                   "services": sim_cfg.service_count, "edges": sim_cfg.edge_count, "rate_per_edge": sim_cfg.edge_rate},
+        "k8s": {"messages": {k.value: v for k, v in received.items()}, "list_and_translate_s": list_s,
+                "until_processed_s": k8s_s},
+        "agent": {"frames": len(frames), "tcp_rows": tcp_rows, "l7_rows": l7_rows, "pack_s": agent_s,
+                  "send_s": send_s, "l7_frame_rows": LIVE_L7_FRAME_ROWS},
+        "server": {k: getattr(srv, k) for k in ("frames", "records", "bad_frames", "unsupported_frames",
+                                                  "quarantined_frames", "resyncs")},
+        "conservation": {"l7_sent": l7_rows, "emitted": emitted, "ledger": svc.ledger.snapshot(), "gap": gap},
+        "windows_closed": closed, "windows_scored": svc.scored_batches, "score_dispatches": d,
+        "edges_per_window": [b.n_edges for b in windows],
+        "wall_s": wall,
+        "events_per_s_taken": (l7_rows - shed) / wall,
+        "events_per_s_offered": l7_rows / wall,
+        "close_to_score_s": {"p50": float(np.percentile(lat, 50)), "p99": float(np.percentile(lat, 99))},
+        "scorer_busy_s_per_window": svc._scorer_busy_s / max(svc.scored_batches, 1),
+        "launches": launches,
+        "sink_rows": posted["rows"], "backend": stats, "health": {"transitions": transitions,
+                                                                  "puts": posted["health_puts"]},
+        "vs_plain_versions": vs_plain,
+        "beside_serve_native_config5": native_host.get("graphsage"),
+        "export_cost_per_request_row": export,
+    }
+    emit("serve_live_config5", live)
+    return launches, live
+
+
+def _export_cost(interner, n: int = 100_000) -> dict:
+    """The HTTP export leg's host cost a request row, alone on one thread:
+    ``BatchingBackend.persist_requests`` (rows to payload lists, names
+    resolved through ``interner``) and the JSON encoding of a 1,000-row
+    batch, as ``http_transport`` encodes it."""
+    from alaz_tpu_torch.datastore import dto
+    from alaz_tpu_torch.datastore.backend import BatchingBackend
+
+    rows = dto.make_requests(n)
+    rows["start_time_ms"] = 1_700_000_000_000 + np.arange(n)
+    rows["from_ip"], rows["to_ip"] = 0x0A000001, 0x0A600001
+    rows["from_type"], rows["to_type"], rows["protocol"], rows["method"], rows["status_code"] = 1, 2, 1, 1, 200
+    rows["from_uid"] = np.arange(n) % max(len(interner), 1)
+    rows["to_uid"] = (np.arange(n) * 7) % max(len(interner), 1)
+    be = BatchingBackend(lambda endpoint, payload: 200, interner)
+    t0 = time.perf_counter()
+    be.persist_requests(rows)
+    persist_s = time.perf_counter() - t0
+    batch = {"data": be._streams["requests"].pending[:1000]}
+    t0 = time.perf_counter()
+    for _ in range(n // 1000):
+        json.dumps(batch).encode()
+    json_s = time.perf_counter() - t0
+    return {"rows": n, "persist_us": 1e6 * persist_s / n, "json_us": 1e6 * json_s / n}
+
+
+def _live_agent(device: str) -> tuple:
+    """``agent_example`` (built with g++ from the checkout) sends its
+    AlzRecords to a Service with the C++ window accumulator on the card:
+    three windows closed and scored, equal to the plain versions'."""
+    from alaz_tpu_torch.config import ModelConfig, RuntimeConfig
+    from alaz_tpu_torch.events.intern import Interner
+    from alaz_tpu_torch.graph import native
+    from alaz_tpu_torch.models.registry import init_params
+    from alaz_tpu_torch.ops import segment_kernels as K
+    from alaz_tpu_torch.runtime.service import Service
+    from alaz_tpu_torch.sources.ingest_server import IngestServer
+
+    import hashlib
+
+    t0 = time.perf_counter()
+    exe = native.build_agent(force=True)
+    build_s = time.perf_counter() - t0
+    stamp = hashlib.sha256(Path("alaz_tpu_torch/native/agent_example.cc").read_bytes()).hexdigest()[:16]
+    require(f"ALZ_SOURCE_STAMP:{stamp}".encode() in exe.read_bytes(), f"{exe} does not carry stamp {stamp}")
+    mcfg = ModelConfig()
+    cfg = RuntimeConfig(model=mcfg, window_s=1.0, score_batch_windows=1)
+    params = init_params(mcfg, key=0, device=device)
+    sunk, windows = [], []
+    svc = Service(config=cfg, interner=Interner(), model_state=params, score_sink=sunk.append,
+                  score_threshold=0.0, use_native_ingest=True, device=device)
+    svc.score_observer = lambda batch, tenant, lat: windows.append(batch)
+    path = Path("build/chip_smoke/agent.sock")
+    srv = IngestServer(svc, path=str(path))
+    try:
+        srv.start()
+        svc.start()
+        _sync(svc.torch_device)
+        K.reset_launch_counts()
+        run = subprocess.run([str(exe), str(path), str(AGENT_RECORDS)], capture_output=True, text=True, timeout=60)
+        require(run.returncode == 0, f"agent_example exited {run.returncode}: {run.stderr[-2000:]}")
+        _until(lambda: srv.records >= AGENT_RECORDS, "the agent's records", 60)
+        svc.flush_windows()
+        svc.drain(120)
+        _sync(svc.torch_device)
+        launches = K.launch_counts()
+    finally:
+        srv.stop()
+        svc.stop()
+        svc.graph_store.close()
+    d = svc.score_dispatches
+    require(srv.records == AGENT_RECORDS and srv.bad_frames == 0, f"agent: the server took {srv.records} rows")
+    require(svc.scored_batches == len(windows) == len(sunk) == 3, f"agent: {svc.scored_batches} windows scored")
+    if svc.torch_device.type == "cuda":
+        require(launches == _counts(2 * d, d, 0, 0), f"agent: launches {launches} for {d} dispatches")
+    with plain_kernels():
+        plain = _serve_once(cfg, params, backlog=windows, device=device)
+    vs_plain = _scores_agree("serve_live agent vs plain", {sb.window_start_ms: sb.score for sb in sunk},
+                             plain["scores"])
+    require(vs_plain["max_abs_err"] == 0.0, f"agent: scores differ from the plain versions' by "
+                                             f"{vs_plain['max_abs_err']}")
+    out = {"binary": str(exe.relative_to(Path.cwd().resolve())) if exe.is_absolute() else str(exe),
+           "stamp": stamp, "gxx_build_s": build_s, "records": srv.records, "frames": srv.frames,
+           "windows": [b.window_start_ms for b in windows], "edges_per_window": [b.n_edges for b in windows],
+           "launches": launches, "vs_plain_versions": vs_plain}
+    emit("serve_live_agent", out)
+    return launches, out
+
+
+def _live_cli(sim_cfg=None, device_args: tuple = ()) -> dict:
+    """``python -m alaz_tpu_torch serve --ingest-socket`` as an operator
+    runs it, with no ``--config``: config3's pods from the fake API server
+    (``K8S_API_SERVER``), its frames (cut to 2.1 s) from an agent, the
+    requests flat out once the connections are in, the native engine
+    (``ENGINE_BACKEND``) and the queues sized to the burst, no export
+    backend (the in-process run has it), GraphSAGE at full width from a
+    checkpoint of seed-0 weights; stopped by SIGINT once every row is in
+    and two windows are scored. Its summary: every closed window scored,
+    every row sent taken in."""
+    from alaz_tpu_torch.config import ModelConfig
+    from alaz_tpu_torch.events.intern import Interner
+    from alaz_tpu_torch.models.registry import init_params
+    from alaz_tpu_torch.replay.simulator import Simulator
+    from alaz_tpu_torch.train import checkpoint
+
+    work = Path("build/chip_smoke")
+    ckpt = work / "live_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    mcfg = ModelConfig()
+    checkpoint.save(ckpt, 0, init_params(mcfg, key=0, device="cpu"), contract=checkpoint.feature_contract(mcfg))
+    full_s = None
+    if sim_cfg is None:
+        sim_cfg, full_s = _replay_config(LIVE_CLI_CONFIG, LIVE_CLI_DURATION_S)
+    sim = Simulator(sim_cfg, interner=Interner())
+    msgs = sim.setup()
+    frames, tcp_rows, l7_rows = agent_frames(sim)
+    api = FakeApiServer(api_items(msgs))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MODEL", "EDGE_LAYOUT", "LOCAL_PIDS", "INGEST_SOCKET", "INGEST_BACKEND", "BACKEND_HOST")}
+    env.update(K8S_API_SERVER=api.url, KUBE_EVENTS_BUFFER_SIZE=str(LIVE_KUBE_EVENTS),
+               EVENTS_BUFFER_SIZE=str(LIVE_L7_EVENTS), ENGINE_BACKEND="native")
+    sock = work / "live_cli.sock"
+    try:
+        n_k8s = len(msgs) + sum(1 for m in msgs if m.resource_type.value == "Pod" and m.object.image)
+        run = run_live_cli("alaz_tpu_torch", ["--ckpt", str(ckpt), *device_args], env, str(sock), frames,
+                           tcp_rows + l7_rows, SERVE_CLI_MIN_WINDOWS, scored=True, tcp_rows=tcp_rows,
+                           k8s_msgs=n_k8s)
+    finally:
+        api.close()
+    require(run["exit_code"] == 0, f"serve --ingest-socket exited {run['exit_code']}: {run['stderr_tail']}")
+    summary = json.loads(run["last_line"])
+    require(summary["windows_scored"] == summary["windows_closed"] >= SERVE_CLI_MIN_WINDOWS
+            and summary["edges_scored"] > 0, f"serve --ingest-socket: {summary}")
+    require(summary["events"] == tcp_rows + l7_rows, f"serve --ingest-socket took {summary['events']} rows, "
+                                                     f"the agent sent {tcp_rows + l7_rows}")
+    require("k8s informers watching" in run["stderr"], "serve --ingest-socket: the K8s watch is not live")
+    out = {"replay": {"config": LIVE_CLI_CONFIG if full_s else None,
+                      "testDuration_s": [full_s, sim_cfg.test_duration_s]},
+           "summary": summary, "rows_sent": tcp_rows + l7_rows, "send_s": run["send_s"],
+           "command_s": run["command_s"], "aggregator": run["scrape"]["stats"]["aggregator"],
+           "ledger": {k: v for k, v in run["scrape"]["metrics"].items() if k.startswith("alaz_tpu_ledger_")}}
+    emit("serve_live_cli", out)
+    return out
+
+
+def _live_chaos() -> dict:
+    """``python -m alaz_tpu_torch.chaos --seed 0``: the pipeline, frame
+    and backend legs (and the composed scenario) with no finding."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "alaz_tpu_torch.chaos", "--seed", "0"],
+                          capture_output=True, text=True, timeout=600)
+    reports = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    require(proc.returncode == 0, f"chaos CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    suite = [r for r in reports if "pipeline" in r]
+    require(len(suite) == 1 and all(suite[0][leg] for leg in ("pipeline", "frames", "backend"))
+            and suite[0]["findings"] == [], f"chaos CLI: {reports}")
+    out = {"legs": {leg: sorted(suite[0][leg]) for leg in ("pipeline", "frames", "backend")},
+           "reports": len(reports), "command_s": time.perf_counter() - t0}
+    emit("serve_live_chaos", out)
+    return out
+
+
+def phase_serve_live(native_host: dict, device: str = "cuda") -> dict:
+    """Live ingest as deployed: the K8s watch over a fake API server with
+    config5's pods and services, an agent's frames over the unix socket,
+    request rows and scores exported over HTTP to a sink whose health
+    answers stop and resume the Service, GraphSAGE on the card at full
+    width (``_live_inprocess``); ``agent_example``'s records into the C++
+    window accumulator (``_live_agent``); the ``serve`` CLI stopped by
+    SIGINT (``_live_cli``); the chaos CLI (``_live_chaos``). Returns the
+    launch counts of the two in-process runs."""
+    inproc, _ = _live_inprocess(native_host, device)
+    agent, _ = _live_agent(device)
+    _live_cli()
+    _live_chaos()
+    return {"serve_live": inproc, "serve_live_agent": agent}
 
 
 # -- phase 6 ----------------------------------------------------------------
@@ -2537,6 +3242,7 @@ def main() -> int:
     serve_launches.update(native_launches)
     serve_launches.update(phase_serve_process(serve_runs, native_host))
     serve_launches.update(phase_tenants())
+    serve_launches.update(phase_serve_live(native_host))
     train_cli = phase_train_cli()
     phase_serve_cli(train_cli["ckpt"])
     config3 = phase_train_cli_config3()

@@ -7,10 +7,6 @@ parsed, the copy's imports of ``alaz_tpu_torch`` are renamed back to
 reach the tree; docstrings, names, strings and every statement do. The
 only differences allowed are listed per module below:
 
-- ``raises``: a branch the port does not carry yet (the chaos suite's
-  frame and export legs). Its body
-  in the copy must be one ``raise ValueError(...)`` naming the ROADMAP
-  item that will port it; the branch's test stays as in the JAX source.
 - ``ported``: a definition written for torch or the card (the device
   gauges, the profiler endpoints, the incident suite's detection legs
   and CLI, which take ``device``), carrying the port's own docstring, or
@@ -67,9 +63,10 @@ COPIES = {
     "graph/builder.py": {},
     # built with g++ into build/alaz_tpu_torch/ from the port's own
     # native/ingest.cc, and raising where the JAX package falls back
+    # (and native/agent_example.cc, stamped as the JAX Makefile stamps it)
     "graph/native.py": {
         "ported": {"<module docstring>", "_LIB_PATH", "build", "_load"},
-        "added": {"BUILD_DIR", "CXXFLAGS", "_LOAD_LOCK"},
+        "added": {"BUILD_DIR", "CXXFLAGS", "_LOAD_LOCK", "_compile", "_source_digest", "build_agent"},
     },
     "config.py": {"ported": {"ModelConfig"}},
     "obs/histogram.py": {},
@@ -90,17 +87,25 @@ COPIES = {
     # the 16-bit source port of the TCP establish events wraps: the JAX
     # source raises OverflowError under numpy 2 past edge 25,535 (config5)
     "replay/simulator.py": {"ported": {"Simulator.tcp_events"}},
+    "sources/__init__.py": {},
     "sources/base.py": {},
     "sources/replay.py": {},
+    "sources/ingest_server.py": {},
+    "sources/containers.py": {},
+    "sources/cri.py": {},
+    "sources/k8s_client.py": {},
+    "sources/k8s_watch.py": {},
+    "sources/tlsattach.py": {},
+    "sources/gotls.py": {},
+    "sources/logstream.py": {},
+    "datastore/backend.py": {},
+    "runtime/health.py": {},
+    "aggregator/dist_tracing.py": {},
     "aggregator/sharded.py": {},
     "chaos/__init__.py": {},
     "chaos/injectors.py": {},
-    "chaos/harness.py": {
-        "raises": [
-            ("_run_frame_leg", None),
-            ("_run_backend_leg", None),
-        ],
-    },
+    "chaos/harness.py": {},
+    "chaos/__main__.py": {},
     "replay/__init__.py": {},
     "replay/faults.py": {},
     "replay/trace.py": {},
@@ -120,29 +125,17 @@ COPIES = {
 }
 
 
-def _single_raise(body: list) -> bool:
-    """One ``raise ValueError(...)`` whose message names the ROADMAP."""
-    if len(body) != 1 or not isinstance(body[0], ast.Raise):
-        return False
-    exc = body[0].exc
-    if not (isinstance(exc, ast.Call) and getattr(exc.func, "id", None) == "ValueError"):
-        return False
-    return "ROADMAP" in ast.unparse(exc)
-
-
 class _Normalize(ast.NodeTransformer):
-    """Rename the port's imports, strip the allowed definitions and blank
-    the allowed branches, recording which of them it met."""
+    """Rename the port's imports and strip the allowed definitions,
+    recording which of them it met."""
 
     def __init__(self, spec: dict, port: bool):
         self.port = port
         self.remove = set(spec.get("ported", ())) | set(spec.get("dropped", ()))
         if port:
             self.remove |= set(spec.get("added", ()))
-        self.raises = list(spec.get("raises", ()))
         self.scope: list[str] = []
         self.met: set = set()
-        self.bad_raises: list = []
 
     def _qual(self, name: str) -> str:
         return ".".join(self.scope + [name])
@@ -163,13 +156,6 @@ class _Normalize(ast.NodeTransformer):
         if q in self.remove:
             self.met.add(q)
             return None
-        for fn, test in self.raises:
-            if fn == q and test is None:  # the whole body, below its docstring
-                self.met.add((fn, test))
-                doc = node.body[:1] if ast.get_docstring(node) is not None else []
-                if self.port and not _single_raise(node.body[len(doc):]):
-                    self.bad_raises.append((fn, test))
-                node.body = doc + [ast.Pass()]
         self.scope.append(node.name)
         self.generic_visit(node)
         self.scope.pop()
@@ -183,17 +169,6 @@ class _Normalize(ast.NodeTransformer):
             if self._qual(n) in self.remove:
                 self.met.add(self._qual(n))
                 return None
-        return node
-
-    def visit_If(self, node):
-        q = ".".join(self.scope)
-        for fn, test in self.raises:
-            if fn == q and test is not None and ast.unparse(node.test) == test:
-                self.met.add((fn, test))
-                if self.port and not _single_raise(node.body):
-                    self.bad_raises.append((fn, test))
-                node.body = [ast.Pass()]
-        self.generic_visit(node)
         return node
 
 
@@ -213,12 +188,10 @@ def test_copy_equals_its_jax_source(rel):
     spec = COPIES[rel]
     port_dump, port = _normalized(REPO / "alaz_tpu_torch" / rel, spec, port=True)
     jax_dump, ref = _normalized(REPO / "alaz_tpu" / rel, spec, port=False)
-    assert port.bad_raises == [], "a left-out branch must raise ValueError naming the ROADMAP item"
     listed = set(spec.get("ported", ())) - {"<module docstring>"}
     assert listed <= port.met and listed <= ref.met, "a listed definition is missing"
     assert set(spec.get("dropped", ())) <= ref.met
     assert set(spec.get("added", ())) <= port.met
-    assert {tuple(r) for r in spec.get("raises", ())} <= port.met & ref.met
     assert port_dump == jax_dump
 
 
@@ -268,16 +241,18 @@ def test_left_out_ingest_planes_raise():
 
 
 def test_left_out_chaos_legs_and_isolation_raise(capsys):
-    """The chaos suite's frame and export legs still raise; the
-    isolation gate runs (one scenario, host legs only, beside it)."""
+    """Every leg of the chaos suite is ported: the frame leg (the ingest
+    socket) and the export leg (the batching backend) run clean beside
+    the isolation gate (one scenario, host legs only)."""
     import json
 
     from alaz_tpu_torch.chaos.harness import run_chaos_suite
     from alaz_tpu_torch.replay.__main__ import main as suite_main
 
-    for kwargs in ({"legs": ("frames",)}, {"legs": ("backend",)}):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            run_chaos_suite(seed=0, **kwargs)
+    rep = run_chaos_suite(seed=0, legs=("frames", "backend"))
+    assert rep.ok and rep.findings == []
+    assert rep.frames["rows_sent"] > rep.frames["rows_accepted"] > 0
+    assert rep.backend["breaker_opens"] >= 1 and rep.backend["breaker_state"] == "closed"
     assert suite_main(["--isolation", "--no-detection", "--scenarios", "retry_storm", "--workers", "1"]) == 0
     reports = [json.loads(line) for line in capsys.readouterr().out.splitlines() if line.startswith("{")]
     (iso,) = [r for r in reports if r.get("scenario") == "multi_tenant_isolation"]
@@ -323,9 +298,19 @@ def test_native_grouping_and_engine_raise(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match=missing):
         TenantPartition(0, RuntimeConfig(), on_batch=lambda b: None, use_native_ingest=True)
     assert native._lib is None
+    # and so does the reference agent's build
+    with pytest.raises(RuntimeError, match=missing):
+        native.build_agent()
 
 
 def test_ingest_cc_is_its_source_byte_for_byte():
     """The port builds its own copy of the C++ ingest core; its bytes, and
     so its ``ALZ_SOURCE_HASH`` stamp, are the JAX package's."""
     assert (REPO / "alaz_tpu_torch/native/ingest.cc").read_bytes() == (REPO / "alaz_tpu/native/ingest.cc").read_bytes()
+
+
+def test_agent_example_is_its_source_byte_for_byte():
+    """The port builds its own copy of the reference agent; its bytes, and
+    so its ``ALZ_SOURCE_STAMP``, are the JAX package's."""
+    assert (REPO / "alaz_tpu_torch/native/agent_example.cc").read_bytes() == (
+        REPO / "alaz_tpu/native/agent_example.cc").read_bytes()

@@ -681,3 +681,87 @@ def test_process_ingest_service_on_card_matches_plain(dev, workers, batch_window
     plain = WindowScorer(cfg.model, init_params(cfg.model, key=0, device="cpu"), device="cpu")
     for b, sb in zip(windows, sunk):
         np.testing.assert_allclose(sb.score, plain.score(b), rtol=1e-4, atol=1e-4)
+
+
+def test_live_service_on_card_matches_plain(dev, tmp_path):
+    """The live plane on the card: pods and services from a fake API
+    server through the K8s watch, an agent's frames over the unix socket
+    through the native engine, request rows and scores exported to a
+    local HTTP sink; every closed window scored (K1 twice and K2 once a
+    dispatch), every L7 row in a window or the ledger, one anomaly row an
+    edge, and each window scored again on the CPU through the plain
+    versions, f32, within the f32 oracle's 1e-4."""
+    import dataclasses
+    import threading
+    import time
+
+    import chip_smoke
+    from alaz_tpu_torch.config import BackendConfig, ModelConfig, QueueConfig, RuntimeConfig, SimulationConfig
+    from alaz_tpu_torch.datastore.backend import BatchingBackend, http_transport
+    from alaz_tpu_torch.events.intern import Interner
+    from alaz_tpu_torch.models.registry import init_params
+    from alaz_tpu_torch.replay.simulator import Simulator
+    from alaz_tpu_torch.runtime.scorer import WindowScorer
+    from alaz_tpu_torch.runtime.service import Service
+    from alaz_tpu_torch.sources.ingest_server import IngestServer
+    from alaz_tpu_torch.sources.k8s_watch import K8sWatchSource
+
+    sim = Simulator(SimulationConfig(test_duration_s=3.0, **_CARD_SIM), interner=Interner())
+    msgs = sim.setup()
+    frames, tcp_rows, l7_rows = chip_smoke.agent_frames(sim, rows=2048)
+    api, sink = chip_smoke.FakeApiServer(chip_smoke.api_items(msgs)), chip_smoke.BackendSink()
+    # the K8s queue holds the whole LIST (KUBE_EVENTS_BUFFER_SIZE; its default, 1,000, does not)
+    cfg = RuntimeConfig(model=ModelConfig(dtype="float32"), engine_backend="native",
+                        queues=dataclasses.replace(QueueConfig(), kube_events=1 << 16),
+                        backend=dataclasses.replace(BackendConfig(), host=sink.url))
+    interner, sunk, windows, raised = Interner(), [], [], []
+    backend = BatchingBackend(http_transport(sink.url), interner, cfg.backend)
+
+    def score_sink(sb):
+        sunk.append(sb)
+        backend.persist_scores(sb)
+
+    svc = Service(config=cfg, interner=interner, export_backend=backend, score_sink=score_sink,
+                  model_state=init_params(cfg.model, key=0, device="cuda"), score_threshold=0.0, device="cuda")
+    svc.score_observer = lambda batch, tenant, lat: windows.append(batch)
+    src = K8sWatchSource(api_server=api.url)
+    srv = IngestServer(svc, path=tmp_path / "live.sock")
+    hook, threading.excepthook = threading.excepthook, raised.append
+    try:
+        svc.start()
+        src.start(svc)
+        want = len(msgs) + sum(1 for m in msgs if m.resource_type.value == "Pod" and m.object.image)
+        deadline = time.monotonic() + 60
+        while svc.k8s_queue.put_total < want and time.monotonic() < deadline:
+            time.sleep(0.01)
+        svc.drain(timeout_s=60)
+        srv.start()
+        K.reset_launch_counts()
+        chip_smoke.send_frames(str(tmp_path / "live.sock"), frames[:1])  # the connections, then the requests
+        while srv.records < tcp_rows and time.monotonic() < deadline:
+            time.sleep(0.01)
+        svc.drain(timeout_s=60)
+        chip_smoke.send_frames(str(tmp_path / "live.sock"), frames[1:])
+        while srv.records < tcp_rows + l7_rows and time.monotonic() < deadline:
+            time.sleep(0.01)
+        svc.drain(timeout_s=120)
+        svc.flush_windows()
+        svc.drain(timeout_s=120)
+    finally:
+        for stop in (srv.stop, src.stop, svc.stop, backend.stop, api.close):
+            stop()
+        threading.excepthook = hook
+    try:
+        posted = sink.snapshot()
+    finally:
+        sink.close()
+    assert raised == [] and src.live and srv.records == tcp_rows + l7_rows and svc.k8s_queue.put_total == want
+    assert svc.scored_batches == svc.metrics.counter("windows.closed").value == len(sunk) >= 3
+    assert K.launch_counts()["scatter_sum_sorted"] == 2 * svc.score_dispatches
+    assert K.launch_counts()["segment_expand_sorted"] == svc.score_dispatches
+    assert svc.ledger.conservation_gap(l7_rows, sum(b.aggregated_rows() for b in windows)) == 0
+    assert posted["anomaly_windows"] == {b.window_start_ms: b.n_edges for b in windows}
+    assert posted["rows"]["/requests/"] == backend.stats()["requests"]["sent"] > 0
+    plain = WindowScorer(cfg.model, init_params(cfg.model, key=0, device="cpu"), device="cpu")
+    for b, sb in zip(windows, sunk):
+        np.testing.assert_allclose(sb.score, plain.score(b), rtol=1e-4, atol=1e-4)

@@ -65,4 +65,11 @@ def test_importing_every_module_loads_no_jax():
         "alaz_tpu_torch.shm", "alaz_tpu_torch.shm.ring", "alaz_tpu_torch.shm.codec", "alaz_tpu_torch.shm.worker",
         "alaz_tpu_torch.shm.process_pool", "alaz_tpu_torch.replay.tenants",
     } <= set(modules)
-
+    # the live sources, the export backend and health, the chaos CLI
+    assert {
+        "alaz_tpu_torch.sources.ingest_server", "alaz_tpu_torch.sources.k8s_client",
+        "alaz_tpu_torch.sources.k8s_watch", "alaz_tpu_torch.sources.cri", "alaz_tpu_torch.sources.containers",
+        "alaz_tpu_torch.sources.logstream", "alaz_tpu_torch.sources.tlsattach", "alaz_tpu_torch.sources.gotls",
+        "alaz_tpu_torch.datastore.backend", "alaz_tpu_torch.runtime.health",
+        "alaz_tpu_torch.aggregator.dist_tracing", "alaz_tpu_torch.chaos.__main__",
+    } <= set(modules)

@@ -400,6 +400,18 @@ def test_serve_cli_on_the_cpu(tmp_path, monkeypatch, capsys):
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["windows_closed"] == out["windows_scored"] >= 3
     assert out["edges_scored"] > 0
-    monkeypatch.setenv("BACKEND_HOST", "http://localhost:1")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        main(["serve", "--config", str(traffic), "--device", "cpu", "--debug-port", "0"])
+    # with BACKEND_HOST the request rows and the scores go out over HTTP
+    from chip_smoke import BackendSink
+
+    sink = BackendSink()
+    try:
+        monkeypatch.setenv("BACKEND_HOST", sink.url)
+        assert main(["serve", "--config", str(traffic), "--flat-out", "--ckpt", str(tmp_path / "ckpt"),
+                     "--device", "cpu", "--debug-port", "0"]) == 0
+        out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        posted = sink.snapshot()["rows"]
+    finally:
+        sink.close()
+    assert out["windows_closed"] == out["windows_scored"] >= 3
+    # the anomaly leg carries the edges scoring at least 0.5, the default threshold
+    assert posted["/requests/"] > 0 and 0 < posted["/anomalies/"] <= out["edges_scored"]
