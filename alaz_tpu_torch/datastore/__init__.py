@@ -1,6 +1,4 @@
-"""Pluggable sinks for resolved edges: the interface, the DTOs and the
-in-memory store, copied from the JAX package. The HTTP export backend
-(``datastore/backend.py``) is not ported yet."""
+"""Pluggable sinks for resolved edges — the datastore/ package analog."""
 
 from alaz_tpu_torch.datastore.dto import (
     REQUEST_DTYPE,
@@ -17,6 +15,7 @@ from alaz_tpu_torch.datastore.dto import (
 )
 from alaz_tpu_torch.datastore.interface import DataStore, BaseDataStore
 from alaz_tpu_torch.datastore.inmem import InMemDataStore
+from alaz_tpu_torch.datastore.backend import BatchingBackend, Transport
 
 __all__ = [
     "REQUEST_DTYPE",
@@ -33,4 +32,6 @@ __all__ = [
     "DataStore",
     "BaseDataStore",
     "InMemDataStore",
+    "BatchingBackend",
+    "Transport",
 ]

@@ -14,7 +14,11 @@ request for native code (``ENGINE_BACKEND=native``,
 ``use_native_ingest=True``, ``set_native_grouping(True)``) never falls
 back. Only the grouping auto-detect (``graph/builder.py``) catches that
 and groups in numpy. ``build_agent`` builds the reference agent
-(``native/agent_example.cc``) the same way.
+(``native/agent_example.cc``) the same way, and ``build_tsan`` the
+ThreadSanitizer harness (``native/tsan_test.cc`` linked with
+``ingest.cc``). Each build, or cache lookup, is one build event for the
+open compile watchers (``sanitize/retrace.py``): ``libalaz_ingest``,
+``agent_example``, ``tsan_test``.
 """
 
 from __future__ import annotations
@@ -188,32 +192,35 @@ def loaded_source_hash() -> Optional[str]:
     return lib.alz_source_hash().decode()
 
 
-def _compile(src: Path, out: Path, flags: list) -> Path:
-    """Compile ``src`` with g++ (``$CXX``) and ``CXXFLAGS`` plus ``flags``
+def _compile(srcs: list, out: Path, flags: list, cxxflags: tuple = CXXFLAGS, libs: tuple = ()) -> Path:
+    """Compile ``srcs`` with g++ (``$CXX``), ``cxxflags`` and ``flags``
     into ``out``, through a temporary file that replaces ``out`` in one
     step, so processes building at once do not race. Raises RuntimeError,
     with the compiler's output, when the build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [os.environ.get("CXX") or "g++", *CXXFLAGS, *flags, "-o", str(tmp), str(src)]
+    cmd = [os.environ.get("CXX") or "g++", *cxxflags, *flags, "-o", str(tmp), *map(str, srcs), *libs]
+    name = srcs[-1].name
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     except (OSError, subprocess.TimeoutExpired) as exc:
-        raise RuntimeError(f"cannot build {src.name}: {' '.join(cmd)}: {exc}") from exc
+        raise RuntimeError(f"cannot build {name}: {' '.join(cmd)}: {exc}") from exc
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
-            f"building {src.name} failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"building {name} failed ({proc.returncode}): {' '.join(cmd)}\n"
             f"{proc.stdout}{proc.stderr}"
         )
     os.replace(tmp, out)
     return out
 
 
-def _source_digest(src: Path) -> str:
+def _source_digest(*srcs: Path) -> str:
+    """The first 16 hex digits of the sha256 of the sources' bytes,
+    concatenated in order."""
     import hashlib
 
-    return hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    return hashlib.sha256(b"".join(s.read_bytes() for s in srcs)).hexdigest()[:16]
 
 
 def build(force: bool = False) -> Path:
@@ -223,12 +230,15 @@ def build(force: bool = False) -> Path:
     source's sha256, so an edited source is never shadowed by a stale
     build. Raises RuntimeError, with the compiler's output, when the
     build fails."""
+    from alaz_tpu_torch.sanitize.retrace import build_event
+
     src = _LIB_DIR / "ingest.cc"
     digest = _source_digest(src)
     out = BUILD_DIR / f"libalaz_ingest-{digest}.so"
-    if out.exists() and not force:
-        return out
-    return _compile(src, out, [f'-DALZ_SOURCE_HASH="{digest}"', "-shared"])
+    with build_event("libalaz_ingest", f"g++ {src.name} -> {out.name}"):
+        if out.exists() and not force:
+            return out
+        return _compile([src], out, [f'-DALZ_SOURCE_HASH="{digest}"', "-shared"])
 
 
 def build_agent(force: bool = False) -> Path:
@@ -240,12 +250,43 @@ def build_agent(force: bool = False) -> Path:
     source's sha256 (the binary carries ``ALZ_SOURCE_STAMP:<digest>``).
     Raises RuntimeError, with the compiler's output, when the build
     fails."""
+    from alaz_tpu_torch.sanitize.retrace import build_event
+
     src = _LIB_DIR / "agent_example.cc"
     digest = _source_digest(src)
     out = BUILD_DIR / f"agent_example-{digest}"
-    if out.exists() and not force:
-        return out
-    return _compile(src, out, [f'-DALZ_BIN_STAMP="{digest}"'])
+    with build_event("agent_example", f"g++ {src.name} -> {out.name}"):
+        if out.exists() and not force:
+            return out
+        return _compile([src], out, [f'-DALZ_BIN_STAMP="{digest}"'])
+
+
+# the JAX package's native/Makefile flags for its ThreadSanitizer build
+TSAN_CXXFLAGS = ("-O1", "-g", "-std=c++17", "-fsanitize=thread")
+
+
+def build_tsan(force: bool = False) -> Path:
+    """Compile the ThreadSanitizer harness (``native/tsan_test.cc``, one
+    producer pushing records across out-of-order windows while a consumer
+    drains and closes them, linked with ``native/ingest.cc``) into
+    ``BUILD_DIR`` unless these sources were built already; returns the
+    executable's path. As the JAX package's ``make tsan_test`` does, it
+    builds with ``TSAN_CXXFLAGS``, ``-DALZ_SOURCE_HASH`` (ingest.cc's
+    sha256 prefix) and ``-DALZ_BIN_STAMP`` (the sha256 prefix of
+    ingest.cc followed by tsan_test.cc). Run it as the JAX package's test
+    does: exit 0, no ``WARNING: ThreadSanitizer`` on standard error and
+    ``OK`` on standard output. Raises RuntimeError, with the compiler's
+    output, when the build fails."""
+    from alaz_tpu_torch.sanitize.retrace import build_event
+
+    ingest, harness = _LIB_DIR / "ingest.cc", _LIB_DIR / "tsan_test.cc"
+    stamp = _source_digest(ingest, harness)
+    out = BUILD_DIR / f"tsan_test-{stamp}"
+    with build_event("tsan_test", f"g++ -fsanitize=thread {harness.name} {ingest.name} -> {out.name}"):
+        if out.exists() and not force:
+            return out
+        flags = [f'-DALZ_SOURCE_HASH="{_source_digest(ingest)}"', f'-DALZ_BIN_STAMP="{stamp}"']
+        return _compile([ingest, harness], out, flags, cxxflags=TSAN_CXXFLAGS, libs=("-lpthread",))
 
 
 def _load() -> ctypes.CDLL:

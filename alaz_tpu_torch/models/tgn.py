@@ -26,6 +26,7 @@ from alaz_tpu_torch.config import ModelConfig
 from alaz_tpu_torch.device import resolve_device
 from alaz_tpu_torch.models import graphsage
 from alaz_tpu_torch.models.common import Dense, compute_dtype, dense
+from alaz_tpu_torch.sanitize.retrace import dispatch
 
 
 class TGN(nn.Module):
@@ -114,6 +115,7 @@ def make_step_fn(cfg: ModelConfig):
     callers' entry point."""
 
     def tgn_step(params, graph, memory):
-        return step(params, graph, memory, cfg)
+        with dispatch("tgn_step", graph):
+            return step(params, graph, memory, cfg)
 
     return tgn_step

@@ -1,9 +1,10 @@
 """Observability planes, copied from the JAX package: window-lifecycle
 spans (``spans.py``), log-bucket histograms, the flight recorder, the
-device plane's per-bucket telemetry (``device.py``, without the XLA
-compile event plane) and the score plane (``scores.py``)."""
+device plane's per-bucket telemetry and compile event plane
+(``device.py``; the port's compile events are its native builds,
+``sanitize/retrace.py``) and the score plane (``scores.py``)."""
 
-from alaz_tpu_torch.obs.device import DeviceTelemetry, batch_pad_waste_pct, bucket_key
+from alaz_tpu_torch.obs.device import CompileEventPlane, DeviceTelemetry, batch_pad_waste_pct, bucket_key
 from alaz_tpu_torch.obs.histogram import DEFAULT_BOUNDS, Histogram
 from alaz_tpu_torch.obs.recorder import FlightRecorder
 from alaz_tpu_torch.obs.scores import SCORE_BOUNDS, DriftDetector, ScorePlane, feature_scores
@@ -17,6 +18,7 @@ __all__ = [
     "STAGES",
     "SpanTracer",
     "WindowSpan",
+    "CompileEventPlane",
     "DeviceTelemetry",
     "batch_pad_waste_pct",
     "bucket_key",

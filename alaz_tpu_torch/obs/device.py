@@ -371,3 +371,106 @@ class DeviceTelemetry:
         out["buckets"] = per_bucket
         return out
 
+
+def _metric_safe(name: str) -> str:
+    """Traced-fn names can carry non-identifier characters
+    (``<lambda>``); the closed metric registry and the Prometheus
+    exposition both need a clean token."""
+    import re
+
+    return re.sub(r"[^0-9A-Za-z_]", "_", name)
+
+
+class CompileEventPlane:
+    """Always-on XLA compile capture (see module docstring).
+
+    ``start()`` opens a :class:`~alaz_tpu.sanitize.retrace.CompileWatcher`
+    for the plane's lifetime (the service owns one per process-resident
+    scorer; jax's ``log_compiles`` flag is saved/restored on stop). Each
+    "Compiling <fn>" event counts into ``compile.events`` and
+    ``compile.<fn>``; each "Finished XLA compilation" event carries the
+    duration and lands in the flight recorder with the bucket the scorer
+    thread declared via :meth:`bucket`.
+
+    The steady-state contract this makes operational: after warmup,
+    ``compile.<entry point>`` counters FREEZE — any later increment on
+    a dashboard is a serving-path retrace (shape outside the bucket set,
+    fresh jit wrapper, Python-type flip; see alazsan/ALZ006), caught in
+    production instead of only under ``make sanitize``.
+    """
+
+    def __init__(self, metrics=None, recorder=None, enabled: bool = True):
+        self.enabled = enabled
+        self.metrics = metrics
+        self.recorder = recorder
+        self.events = 0  # "Compiling" count — guarded-by: self._lock
+        self.by_fn: Dict[str, int] = {}  # guarded-by: self._lock
+        self._lock = threading.Lock()
+        self._tls = threading.local()  # current bucket, scorer-thread-set
+        self._watcher = None
+        if metrics is not None:
+            self._c_events = metrics.counter("compile.events")
+        else:
+            self._c_events = None
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def start(self) -> "CompileEventPlane":
+        if not self.enabled or self._watcher is not None:
+            return self
+        from alaz_tpu_torch.sanitize.retrace import CompileWatcher
+
+        self._watcher = CompileWatcher(on_event=self._on_event)
+        self._watcher.__enter__()
+        return self
+
+    def stop(self) -> None:
+        if self._watcher is not None:
+            self._watcher.__exit__()
+            self._watcher = None
+
+    # -- bucket attribution --------------------------------------------------
+
+    @contextmanager
+    def bucket(self, key: Optional[str]):
+        """Tag compiles fired inside the block with ``key`` — exact
+        because XLA compiles synchronously on the dispatching thread."""
+        prev = getattr(self._tls, "bucket", None)
+        self._tls.bucket = key
+        try:
+            yield
+        finally:
+            self._tls.bucket = prev
+
+    # -- capture sink --------------------------------------------------------
+
+    def _on_event(self, kind: str, name: str, secs: Optional[float]) -> None:
+        bucket = getattr(self._tls, "bucket", None)
+        if kind == "compiling":
+            with self._lock:
+                self.events += 1
+                self.by_fn[name] = self.by_fn.get(name, 0) + 1
+            if self._c_events is not None:
+                self._c_events.inc()
+            if self.metrics is not None:
+                self.metrics.counter(f"compile.{_metric_safe(name)}").inc()
+        elif kind == "finished" and self.recorder is not None:
+            # one recorder event per compile, on the message that knows
+            # the duration; a steady-state retrace therefore rides every
+            # crash dump and /recorder pull with its cost attached
+            self.recorder.record(
+                "compile",
+                fn=name,
+                bucket=bucket,
+                duration_ms=round(secs * 1e3, 3) if secs is not None else None,
+            )
+
+    # -- read side -----------------------------------------------------------
+
+    def count(self, name: str) -> int:
+        with self._lock:
+            return self.by_fn.get(name, 0)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {"events": self.events, "by_fn": dict(self.by_fn)}

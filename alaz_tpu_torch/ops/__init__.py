@@ -6,6 +6,11 @@ kernels' wrappers, plain versions and launch counters. The CUDA sources
 are in ``csrc/``.
 """
 
-from alaz_tpu_torch.ops.segment import gather_scatter_sum, segment_sum
+from alaz_tpu_torch.ops.segment import gather_scatter_sum, segment_mean, segment_softmax, segment_sum
 
-__all__ = ["gather_scatter_sum", "segment_sum"]
+__all__ = [
+    "gather_scatter_sum",
+    "segment_mean",
+    "segment_softmax",
+    "segment_sum",
+]

@@ -64,11 +64,19 @@ def nvcc_path() -> str:
 
 def build(name: str = "segment", extra_flags: tuple = ()) -> Built:
     """Compile ``csrc/<name>.cu`` unless this exact source and flag set
-    was built already."""
+    was built already. Either way one build event ``name`` reaches the
+    open compile watchers (``sanitize/retrace.py``), with its seconds."""
+    from alaz_tpu_torch.sanitize.retrace import build_event
+
     src = CSRC / f"{name}.cu"
     flags = (*NVCC_FLAGS, *extra_flags)
     digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"libalaz_{name}-{digest}.so"
+    with build_event(name, f"nvcc {src.name} -> {out.name}"):
+        return _nvcc(src, flags, out)
+
+
+def _nvcc(src: Path, flags: tuple, out: Path) -> Built:
     log_path = out.with_suffix(".log")
     if out.exists() and log_path.exists():
         return Built(out, log_path.read_text())
@@ -97,12 +105,13 @@ def _load(path: Path) -> ctypes.CDLL:
     return lib
 
 
-def library() -> ctypes.CDLL:
-    """The kernels' library, built and loaded once per process."""
+def library(built: Built | None = None) -> ctypes.CDLL:
+    """The kernels' library, loaded once per process: ``built`` (a
+    ``build()`` result) where given, else built here."""
     global _LIB
     with _LOCK:
         if _LIB is None:
-            _LIB = _load(build().path)
+            _LIB = _load((built or build()).path)
         return _LIB
 
 

@@ -44,6 +44,42 @@ def blocked_segment_sum(
     return out if out_dtype is None else out.to(out_dtype)
 
 
+def segment_mean(
+    data: torch.Tensor,
+    segment_ids: torch.Tensor,
+    num_segments: int,
+    weights: torch.Tensor | None = None,
+    block_starts: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Mean with masked counts: ``weights`` (0/1 per edge) excludes padding
+    edges from both numerator and denominator. ``block_starts`` routes
+    the three reductions through ``blocked_segment_sum`` (frontier-masked
+    tiles) — bit-exact, since pad edges carry weight 0 either way."""
+    if block_starts is not None:
+        def _sum(d):
+            return blocked_segment_sum(d, segment_ids, block_starts, num_segments)
+    else:
+        def _sum(d):
+            return segment_sum(d, segment_ids, num_segments)
+
+    if weights is not None:
+        data = data * weights[:, None]
+        counts = _sum(weights)
+    else:
+        counts = _sum(torch.ones(segment_ids.shape[0], dtype=data.dtype, device=data.device))
+    totals = _sum(data)
+    return totals / torch.clamp(counts, min=1.0)[:, None]
+
+
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """out[s] = max_{i: ids[i]=s} data[i]; an empty segment is the dtype's
+    lowest value (−inf for floats), as ``jax.ops.segment_max`` gives it."""
+    low = -torch.inf if data.is_floating_point() else torch.iinfo(data.dtype).min
+    out = torch.full((num_segments,) + tuple(data.shape[1:]), low, dtype=data.dtype, device=data.device)
+    idx = segment_ids.long().reshape((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
+    return out.scatter_reduce(0, idx, data, "amax", include_self=True)
+
+
 _KERNEL_MODES = (True, False, "interpret")
 
 
@@ -151,6 +187,44 @@ def gather_src(
     if mode == "xla":
         return v[src_ids]
     return segment_kernels.gather_rows_banded(v, src_ids, num_nodes)
+
+
+def segment_softmax(
+    logits: torch.Tensor,
+    segment_ids: torch.Tensor,
+    num_segments: int,
+    mask: torch.Tensor | None = None,
+    use_pallas: bool | str = False,
+) -> torch.Tensor:
+    """Per-segment softmax over edge logits (GAT attention normalization).
+
+    ``logits`` may be [E] or [E, H] (all heads in one call). Masked edges
+    get −1e30 logits so they contribute zero weight; a segment's max is
+    zeroed where the segment is empty (−inf). With ``use_pallas`` and
+    dst-sorted segment ids, the two per-edge broadcasts go through the
+    sorted-expand wrapper (K2 on a CUDA tensor) and the denominator
+    through the sorted-sum wrapper (K1), as the JAX package routes them
+    through its sorted-expand kernel; their plain versions on a CPU
+    tensor."""
+    squeeze = logits.dim() == 1
+    if squeeze:
+        logits = logits[:, None]
+    if mask is not None:
+        logits = torch.where(mask[:, None], logits, -1e30)
+    seg_max = segment_max(logits, segment_ids, num_segments)
+    seg_max = torch.where(torch.isfinite(seg_max), seg_max, 0.0)
+    exp = torch.exp(logits - expand_dst(seg_max, segment_ids, num_segments, use_pallas))
+    if mask is not None:
+        exp = torch.where(mask[:, None], exp, 0.0)
+    denom = segment_sum_sorted_dispatch(exp, segment_ids, num_segments, use_pallas)
+    denom_e = expand_dst(denom, segment_ids, num_segments, use_pallas)
+    # double-where guard: an all-masked segment (the pad tail) has denom
+    # 0, and a bare eps-clamped division NaNs in the backward (x/y² with
+    # y² underflowing f32); make the division itself safe instead of
+    # relying on masking downstream
+    nonempty = denom_e > 0.0
+    out = torch.where(nonempty, exp / torch.where(nonempty, denom_e, 1.0), 0.0)
+    return out[:, 0] if squeeze else out
 
 
 def gather_scatter_sum(

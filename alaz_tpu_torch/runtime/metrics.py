@@ -480,15 +480,21 @@ def device_gauges(metrics: Metrics, device=None) -> None:
     """Accelerator gauges under the JAX package's names (the NVML
     collector analog): per-device memory gauges from the CUDA caching
     allocator, an HBM-utilization percentage and device identity info,
-    for every visible card when ``device`` is a CUDA device. On the CPU
-    one ``device0`` with zero memory, as the JAX package reports a host
-    device without memory statistics. The TPU runtime's environment
-    legs (``runtime/tpu_env.py``) have no counterpart here; the
-    compute-side gauge is the scorer duty cycle the service registers."""
+    for every visible card when ``device`` is a CUDA device, and — where
+    NVML answers — the environment legs of ``runtime/gpu_env.py``
+    (kernel duty cycle and device memory under the TPU runtime's gauge
+    names, power, SM clock, temperature, fan), where the JAX package
+    registers its ``TpuEnvCollector``. On the CPU one ``device0`` with
+    zero memory, as the JAX package reports a host device without memory
+    statistics, and no NVML legs. The compute-side gauge is the scorer
+    duty cycle the service registers."""
     import torch
 
     dev = torch.device("cpu" if device is None else device)
     if dev.type == "cuda":
+        from alaz_tpu_torch.runtime.gpu_env import GpuEnvCollector
+
+        GpuEnvCollector().register(metrics)
         count = torch.cuda.device_count()
         for i in range(count):
             for gauge_name, read in _DEVICE_MEM_KEYS:

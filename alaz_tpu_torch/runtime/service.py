@@ -20,8 +20,14 @@ tenancy) is the JAX package's, copied. What differs is the device leg:
   (``models/common.py group_graph``), where the JAX package vmaps the
   model: the kernels cannot run under ``jax.vmap``, and one launch per
   kernel for the whole group is what vmap bought;
-- there is no XLA compile event plane: nothing is traced or compiled per
-  bucket, and the kernels are built once, before the workers start.
+- the compile event plane (``obs/device.py CompileEventPlane``) hears
+  the port's builds, not XLA compiles: nothing is traced or compiled per
+  bucket, and ``start()`` builds the kernels' library (or finds this
+  source's build) once, before the workers start, as the ``segment``
+  build event (``compile.events``, ``compile.segment``, a ``compile``
+  recorder event with its ``duration_ms``). Each entry point's dispatch
+  reports its kernel launches to the open compile watchers
+  (``sanitize/retrace.py``), where launch budgets hold them.
 
 With a host scorer (``score_fn``, and ``score_many_fn`` for groups) the
 model, the card and the kernels are left out: windows stay numpy and
@@ -32,6 +38,7 @@ Pause/resume hooks match the health checker's stop/resume protocol.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import threading
 import time as time_module
@@ -48,7 +55,7 @@ from alaz_tpu_torch.events.intern import Interner
 from alaz_tpu_torch.graph.builder import WindowedGraphStore, src_locality_gauges
 from alaz_tpu_torch.graph.snapshot import GraphBatch
 from alaz_tpu_torch.logging import get_logger
-from alaz_tpu_torch.obs.device import DeviceTelemetry
+from alaz_tpu_torch.obs.device import CompileEventPlane, DeviceTelemetry, bucket_key
 from alaz_tpu_torch.obs.recorder import FlightRecorder
 from alaz_tpu_torch.obs.scores import ScorePlane
 from alaz_tpu_torch.obs.spans import SpanTracer
@@ -167,11 +174,15 @@ class StagingArenas:
 
 
 def _to_numpy(x) -> np.ndarray:
-    """A score output read back to the host (waits for the device); a
-    host scorer's output as it is."""
+    """A score output read back to the host (waits for the device: an
+    explicit transfer under ``sanitize.no_implicit_transfers``); a host
+    scorer's output as it is."""
     if not isinstance(x, torch.Tensor):
         return np.asarray(x)
-    return x.float().cpu().numpy()
+    from alaz_tpu_torch.sanitize.retrace import explicit_transfer
+
+    with explicit_transfer():
+        return x.float().cpu().numpy()
 
 
 def _batched_score_fn(cfg):
@@ -184,12 +195,13 @@ def _batched_score_fn(cfg):
     [W, N_pad, H]``, GAT's ``attn_clamp_saturation [W]``."""
     from alaz_tpu_torch.models.common import group_graph
     from alaz_tpu_torch.models.registry import get_model
+    from alaz_tpu_torch.sanitize.retrace import dispatch
 
     _, apply = get_model(cfg.model)
 
     def batched_score_apply(params, stacked: dict) -> dict:
         w = stacked["node_feats"].shape[0]
-        with torch.inference_mode():
+        with torch.inference_mode(), dispatch("batched_score_apply", stacked):
             out = apply(params, group_graph(stacked, cfg), cfg)
         return {
             k: v if k == "attn_clamp_saturation" else v.reshape(w, -1, *v.shape[1:])
@@ -324,6 +336,21 @@ class Service:
             recorder=self.recorder,
             enabled=tcfg.enabled and tcfg.device_enabled,
         )
+        # always-on compile event plane: the port's builds (the kernels'
+        # nvcc build or cache lookup in start(), the g++ builds) count
+        # into compile.* on /metrics and land in crash dumps. Same gate
+        # as the JAX package's: TRACE_ENABLED=0 is the master obs kill
+        # switch, and a host-score service builds no kernels.
+        self.compile_plane: Optional[CompileEventPlane] = None
+        if (
+            model_state is not None
+            and not self._host_score
+            and tcfg.enabled
+            and tcfg.device_enabled
+        ):
+            self.compile_plane = CompileEventPlane(
+                metrics=self.metrics, recorder=self.recorder
+            ).start()
         # score-plane observability (obs/scores.py): per-model
         # distribution sketch, drift detection, top-K attribution —
         # rides model_state like the compile plane (a non-scoring
@@ -907,8 +934,9 @@ class Service:
             try:
                 t0 = time_module.perf_counter()
                 self.score_dispatches += 1
-                out = self._score_fn(self.model_state, graph)
-                logits = _to_numpy(out["edge_logits"])
+                with self._bucket_ctx(batch):
+                    out = self._score_fn(self.model_state, graph)
+                    logits = _to_numpy(out["edge_logits"])
                 if "attn_clamp_saturation" in out:
                     # GAT logit-clamp saturation (models/gat.py layer_fn):
                     # nonzero means trained logits are hitting ±30 and the
@@ -985,7 +1013,8 @@ class Service:
                     stacked = {k: v.to(self.torch_device, non_blocking=True) for k, v in arena.items()}
                 t_xfer = time_module.perf_counter()
                 stage_s = t_xfer - t0
-                out = self._score_many_fn(self.model_state, stacked)
+                with self._bucket_ctx(batches[0]):
+                    out = self._score_many_fn(self.model_state, stacked)
                 self._scorer_busy_s += time_module.perf_counter() - t0
                 # the whole group staged in one arena fill + transfer:
                 # each member's span carries the shared staging time
@@ -1103,7 +1132,8 @@ class Service:
                     cols = batch.device_arrays(self.config.model.edge_layout)
                     t_arena = time_module.perf_counter()
                     # a host scorer takes the numpy columns: no copy
-                    graph = cols if self._host_score else self._to_device(batch, cols)
+                    with self._bucket_ctx(batch):
+                        graph = cols if self._host_score else self._to_device(batch, cols)
                     t_xfer = time_module.perf_counter()
                     dt = t_xfer - t0
                     self._scorer_busy_s += dt
@@ -1172,6 +1202,14 @@ class Service:
         ScorePlane}) — the /scores surface for K > 1; tenants that
         have not scored are absent."""
         return dict(self._score_planes)
+
+    def _bucket_ctx(self, batch: GraphBatch):
+        """Build attribution: a build fired while staging/scoring
+        ``batch`` — synchronously, on this thread — tags the recorder's
+        ``compile`` event with its shape bucket."""
+        if self.compile_plane is None:
+            return contextlib.nullcontext()
+        return self.compile_plane.bucket(bucket_key(batch))
 
     def _annotate(
         self,
@@ -1283,11 +1321,13 @@ class Service:
             and self._score_fn is not None
             and self.config.model.use_pallas
         ):
-            # build and load the kernels here, on the calling thread: a
-            # first-use nvcc build must not run inside the scorer thread
+            # build (or find this source's build of) the kernels and load
+            # them here, on the calling thread: a first-use nvcc build must
+            # not run inside the scorer thread. One ``segment`` build event
+            # for the compile plane, per start
             from alaz_tpu_torch.ops import _build
 
-            _build.library()
+            _build.library(_build.build())
         # the window close groups in C++ where the native library builds
         # and in numpy otherwise (the auto-detect), and says once which
         # serves
@@ -1374,4 +1414,7 @@ class Service:
         self._threads.clear()
         for part in self.partitions:
             part.stop()
+        if self.compile_plane is not None:
+            # detach the plane's watcher from the build and dispatch sites
+            self.compile_plane.stop()
         log.info(f"service stopped; metrics={self.metrics.snapshot()}")

@@ -27,6 +27,7 @@ from alaz_tpu_torch.device import resolve_device
 from alaz_tpu_torch.graph.snapshot import GraphBatch
 from alaz_tpu_torch.models import tgn
 from alaz_tpu_torch.models.registry import get_model
+from alaz_tpu_torch.sanitize.retrace import dispatch
 from alaz_tpu_torch.train.objective import edge_bce_loss
 
 
@@ -119,12 +120,13 @@ def make_train_step(cfg: ModelConfig, pos_weight: float = 10.0, device=None) -> 
     dev = resolve_device(device)
 
     def train_step(params, optimizer, graph: dict, edge_label) -> torch.Tensor:
-        g = _train_graph(graph, dev)
-        label = _autograd_tensor(torch.as_tensor(edge_label, device=dev))
-        optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(params, g, label)
-        backward(params, loss)
-        optimizer.step()
+        with dispatch("train_step", graph):
+            g = _train_graph(graph, dev)
+            label = _autograd_tensor(torch.as_tensor(edge_label, device=dev))
+            optimizer.zero_grad(set_to_none=True)
+            loss = loss_fn(params, g, label)
+            backward(params, loss)
+            optimizer.step()
         return loss.detach()
 
     return train_step
@@ -273,7 +275,7 @@ def make_score_fn(cfg: ModelConfig, device=None) -> Callable:
     dev = resolve_device(device)
 
     def score_apply(params, graph: dict) -> dict:
-        with torch.inference_mode():
+        with torch.inference_mode(), dispatch("score_apply", graph):
             return apply(params, graph_to_torch(graph, dev), cfg)
 
     return score_apply

@@ -11,6 +11,12 @@ Phases, each raising on failure:
                 ``build/alaz_tpu_torch/`` and print ptxas's register,
                 shared-memory and spill lines; its K4-timeline build
                 compiles alongside;
+   gpu env   -- the NVML collector (``runtime/gpu_env.py``) registers on
+                the card with its default legs under the JAX package's
+                gauge names; its gauges, read between two ``nvidia-smi``
+                readings, hold to them: device memory in MiB exactly,
+                temperature within 3 °C, SM clock and power within the
+                readings' range ±10%;
 2. layout    -- the GAT windows' ``cluster_renumber`` pass: its host
                 seconds per window and the src-locality gauges of each
                 window with and without it;
@@ -43,6 +49,11 @@ Phases, each raising on failure:
                 131,072 rows by the first; launch counts; scores and the
                 final memory held against the same stream on the plain
                 versions;
+   prefetch  -- the uniform windows through ``WindowScorer`` and through
+                ``runtime/pipeline.py DevicePrefetcher`` (page-locked
+                buffers filled and copied on a side stream by a staging
+                thread, one window ahead), in turns, each timed with CUDA
+                events and the host clock; scores bit-equal;
    serve     -- the streaming ``Service`` on the card over each test
                 config's replayed traffic, testDuration cut to 3.1 s
                 (config5's to 2.1 s; hidden 128, 2 layers, bf16, kernels
@@ -114,6 +125,18 @@ Phases, each raising on failure:
                 row in, at least two windows, all scored; ``python -m
                 alaz_tpu_torch.chaos --seed 0``: exit 0, three legs, no
                 finding;
+   sanitize  -- GAT banded, renumbered and blocked on config3's traffic
+                (cut to 1.1 s) through the C++ engine and window
+                accumulator, with the Service and everything it builds
+                under ``sanitize.lockorder.instrument()``: the observed
+                lock-order graph printed and acyclic, every window scored,
+                equal to the plain versions' (max error 0.0);
+                every serve run above (``_started_under_budgets``): the
+                compile plane counts the kernels' build at ``start()``
+                (``compile.segment``, a recorder event with its
+                ``duration_ms``), no ``compile.*`` counter moves after it,
+                and ``sanitize.retrace_budget`` holds the run to no build
+                and every dispatch to its model's K1-K3 launches;
    train cli -- ``python -m alaz_tpu_torch train --model m`` in this
                 process for each family on the CLI's default replay config
                 (full width, ``ModelConfig.from_env()``; GAT with
@@ -844,18 +867,19 @@ def _serve_once(cfg, params, sim_cfg=None, backlog=None, device: str = "cuda",
     K.reset_launch_counts()
     events = 0
     watched = None
+    compile_plane = {}
     t0 = time.perf_counter()
     try:
         with (watch(svc) if watch is not None else contextlib.nullcontext()) as watched:
             if backlog is not None:
                 for b in backlog:
                     svc.graph_store.on_batch(b)
-            svc.start()
-            if sim_cfg is not None:
-                events, wall = _replay(svc, Simulator(sim_cfg, interner=interner))
-            else:
-                svc.drain(300)
-                wall = time.perf_counter() - t0
+            with _started_under_budgets(svc, compile_plane):
+                if sim_cfg is not None:
+                    events, wall = _replay(svc, Simulator(sim_cfg, interner=interner))
+                else:
+                    svc.drain(300)
+                    wall = time.perf_counter() - t0
     finally:
         svc.stop()
         threading.excepthook = hook
@@ -900,6 +924,7 @@ def _serve_once(cfg, params, sim_cfg=None, backlog=None, device: str = "cuda",
                               "pinned": svc._serial_arenas.pin},
             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated() if on_card else None,
             "launches": launches,
+            "compile_plane": compile_plane,
         },
     }
 
@@ -912,6 +937,57 @@ def _require_launches(family: str, run: dict) -> None:
     require(run["summary"]["launches"] == _counts(k1 * d, k2 * d, k3 * d, 0),
             f"serve {family}: launches {run['summary']['launches']} for {d} dispatches, "
             f"expected K1 {k1}, K2 {k2}, K3 {k3} a dispatch")
+
+
+def _launch_budget(svc) -> dict:
+    """One score dispatch's kernel launches for the service's model
+    (``SERVE_LAUNCHES``; none on the CPU or under ``plain_kernels``), held
+    for each scoring entry point by ``retrace_budget``."""
+    from alaz_tpu_torch.ops import segment_kernels as K
+
+    mcfg, k = svc.config.model, (0, 0, 0)
+    if svc.torch_device.type == "cuda" and mcfg.use_pallas and K._run_k1 is not K.scatter_sum_sorted_plain:
+        require(mcfg.model != "gat" or mcfg.src_gather == "banded", f"serve: GAT with src_gather {mcfg.src_gather}")
+        k = SERVE_LAUNCHES[mcfg.model]
+    per = _counts(*k, 0)
+    return {entry: per for entry in ("score_apply", "batched_score_apply", "tgn_step")}
+
+
+def _compile_counters(svc) -> dict:
+    return {k: v for k, v in svc.metrics.snapshot().items() if k.startswith("compile.")}
+
+
+@contextlib.contextmanager
+def _started_under_budgets(svc, out: dict):
+    """``svc.start()`` and the run in the block, held by the compile plane
+    and the build and launch budgets (``sanitize/retrace.py``): on the card
+    with kernels on, start() counts the kernels' build (or its lookup) into
+    ``compile.events`` and ``compile.segment`` and the recorder has its
+    ``compile`` event with ``duration_ms``; from then on no build runs and
+    no ``compile.*`` counter moves; every dispatch of the run, the first
+    included, launches the model's kernels (``_launch_budget``). What the
+    plane saw goes into ``out``."""
+    from alaz_tpu_torch.sanitize.retrace import STEADY_STATE_BUDGETS, retrace_budget
+
+    require(svc.compile_plane is not None, "the scoring service has no compile plane")
+    budget = _launch_budget(svc)
+    with retrace_budget({}, launches=budget) as held:
+        svc.start()
+        at_start = _compile_counters(svc)
+        out.update(at_start=at_start, launch_budget=budget["score_apply"])
+        if svc.torch_device.type == "cuda" and svc.config.model.use_pallas:
+            ev = [e for e in svc.recorder.events() if e.get("kind") == "compile" and e.get("fn") == "segment"]
+            require(at_start.get("compile.events", 0) >= 1 and at_start.get("compile.segment", 0) >= 1
+                    and ev and ev[-1].get("duration_ms") is not None,
+                    f"the compile plane missed the kernels' build at start: {at_start}")
+            out["segment_build_ms"] = ev[-1]["duration_ms"]
+        with retrace_budget(STEADY_STATE_BUDGETS, watcher=held):
+            yield
+        moved = _compile_counters(svc)
+        require(moved == at_start, f"compile.* moved in steady state: {at_start} -> {moved}")
+    require(held.dispatch_total == svc.score_dispatches,
+            f"{held.dispatch_total} dispatches held of {svc.score_dispatches}")
+    out["dispatches_held"] = held.dispatch_total
 
 
 def _scores_agree(tag: str, got: dict, ref: dict) -> dict:
@@ -1427,8 +1503,9 @@ def phase_tenants(device: str = "cuda") -> dict:
         _sync(svc.torch_device)
         K.reset_launch_counts()
         t1 = time.perf_counter()
-        svc.start()
-        svc.drain(300)
+        compile_plane = {}
+        with _started_under_budgets(svc, compile_plane):
+            svc.drain(300)
         _sync(svc.torch_device)
         launches = K.launch_counts()
         wall = time.perf_counter() - t1
@@ -1461,7 +1538,8 @@ def phase_tenants(device: str = "cuda") -> dict:
             ref = {b.window_start_ms: serial.score(b) for b in wins[t]}
         agree[str(t)] = _scores_agree(f"tenants: tenant {t} groups vs serial plain", scores[t], ref)
     out = {"tenants": TENANTS, "score_batch_windows": TENANT_GROUP_W, "windows": n_windows, "dispatches": d,
-           "multi_tenant_groups": svc.multi_tenant_groups, "launches": launches, "scorer_wall_s": wall,
+           "multi_tenant_groups": svc.multi_tenant_groups, "launches": launches, "compile_plane": compile_plane,
+           "scorer_wall_s": wall,
            "scorer_busy_s": svc._scorer_busy_s, "books": books, "groups_vs_serial_plain": agree}
     emit("tenants_groups", out)
     return {"tenants_groups": launches}
@@ -1898,44 +1976,45 @@ def _live_inprocess(native_host: dict, device: str, sim_cfg=None) -> tuple:
     srv = IngestServer(svc, path=str(work / "live.sock"))
     raised, hook = [], threading.excepthook
     threading.excepthook = raised.append
+    compile_plane = {}
     try:
         backend.start()
-        svc.start()
-        t0 = time.perf_counter()
-        k8s_src.start(svc)
-        _until(lambda: sum(received.values()) >= sum(want.values()), "the K8s LIST", 300)
-        list_s = time.perf_counter() - t0
-        svc.drain(300)
-        k8s_s = time.perf_counter() - t0
-        require(k8s_src.live and dict(received) == dict(want),
-                f"the K8s watch delivered {dict(received)}, setup() has {dict(want)}")
-        require(svc.k8s_queue.dropped == 0, f"{svc.k8s_queue.dropped} K8s messages shed")
-        srv.start()
-        hc.start()
-        # the agent's connections first, taken in before their requests
-        # (the join retries a request for 60 ms, less than a 40,000-row
-        # TCP batch takes: see PERF.md), as phase_serve's replay does
-        send_frames(str(work / "live.sock"), frames[:1])
-        _until(lambda: srv.records >= tcp_rows, "the TCP establishes", 60)
-        svc.drain(300)
-        _sync(svc.torch_device)
-        K.reset_launch_counts()
-        t1 = time.perf_counter()
-        send_s = send_frames(str(work / "live.sock"), frames[1:])
-        _until(lambda: srv.records + srv.quarantined_frames >= tcp_rows + l7_rows or srv.bad_frames,
-               "the ingest server to take every frame", 300)
-        svc.drain(600)
-        svc.flush_windows()
-        svc.drain(600)
-        _sync(svc.torch_device)
-        wall = time.perf_counter() - t1
-        launches = K.launch_counts()
-        # the backend commands a stop (402), then a resume
-        sink.set_health(402)
-        _until(lambda: hc.state == HealthState.STOPPED and svc._paused.is_set(), "the health stop", 30)
-        refused = not svc.submit_l7(make_l7_events(1))
-        sink.set_health(200)
-        _until(lambda: hc.state == HealthState.RUNNING and not svc._paused.is_set(), "the health resume", 30)
+        with _started_under_budgets(svc, compile_plane):
+            t0 = time.perf_counter()
+            k8s_src.start(svc)
+            _until(lambda: sum(received.values()) >= sum(want.values()), "the K8s LIST", 300)
+            list_s = time.perf_counter() - t0
+            svc.drain(300)
+            k8s_s = time.perf_counter() - t0
+            require(k8s_src.live and dict(received) == dict(want),
+                    f"the K8s watch delivered {dict(received)}, setup() has {dict(want)}")
+            require(svc.k8s_queue.dropped == 0, f"{svc.k8s_queue.dropped} K8s messages shed")
+            srv.start()
+            hc.start()
+            # the agent's connections first, taken in before their requests
+            # (the join retries a request for 60 ms, less than a 40,000-row
+            # TCP batch takes: see PERF.md), as phase_serve's replay does
+            send_frames(str(work / "live.sock"), frames[:1])
+            _until(lambda: srv.records >= tcp_rows, "the TCP establishes", 60)
+            svc.drain(300)
+            _sync(svc.torch_device)
+            K.reset_launch_counts()
+            t1 = time.perf_counter()
+            send_s = send_frames(str(work / "live.sock"), frames[1:])
+            _until(lambda: srv.records + srv.quarantined_frames >= tcp_rows + l7_rows or srv.bad_frames,
+                   "the ingest server to take every frame", 300)
+            svc.drain(600)
+            svc.flush_windows()
+            svc.drain(600)
+            _sync(svc.torch_device)
+            wall = time.perf_counter() - t1
+            launches = K.launch_counts()
+            # the backend commands a stop (402), then a resume
+            sink.set_health(402)
+            _until(lambda: hc.state == HealthState.STOPPED and svc._paused.is_set(), "the health stop", 30)
+            refused = not svc.submit_l7(make_l7_events(1))
+            sink.set_health(200)
+            _until(lambda: hc.state == HealthState.RUNNING and not svc._paused.is_set(), "the health resume", 30)
     finally:
         for stop in (srv.stop, hc.stop, k8s_src.stop, svc.stop, backend.stop, api.close):
             stop()
@@ -1997,6 +2076,7 @@ def _live_inprocess(native_host: dict, device: str, sim_cfg=None) -> tuple:
         "close_to_score_s": {"p50": float(np.percentile(lat, 50)), "p99": float(np.percentile(lat, 99))},
         "scorer_busy_s_per_window": svc._scorer_busy_s / max(svc.scored_batches, 1),
         "launches": launches,
+        "compile_plane": compile_plane,
         "sink_rows": posted["rows"], "backend": stats, "health": {"transitions": transitions,
                                                                   "puts": posted["health_puts"]},
         "vs_plain_versions": vs_plain,
@@ -2061,16 +2141,18 @@ def _live_agent(device: str) -> tuple:
     svc.score_observer = lambda batch, tenant, lat: windows.append(batch)
     path = Path("build/chip_smoke/agent.sock")
     srv = IngestServer(svc, path=str(path))
+    compile_plane = {}
     try:
         srv.start()
-        svc.start()
-        _sync(svc.torch_device)
-        K.reset_launch_counts()
-        run = subprocess.run([str(exe), str(path), str(AGENT_RECORDS)], capture_output=True, text=True, timeout=60)
-        require(run.returncode == 0, f"agent_example exited {run.returncode}: {run.stderr[-2000:]}")
-        _until(lambda: srv.records >= AGENT_RECORDS, "the agent's records", 60)
-        svc.flush_windows()
-        svc.drain(120)
+        with _started_under_budgets(svc, compile_plane):
+            _sync(svc.torch_device)
+            K.reset_launch_counts()
+            run = subprocess.run([str(exe), str(path), str(AGENT_RECORDS)], capture_output=True, text=True,
+                                 timeout=60)
+            require(run.returncode == 0, f"agent_example exited {run.returncode}: {run.stderr[-2000:]}")
+            _until(lambda: srv.records >= AGENT_RECORDS, "the agent's records", 60)
+            svc.flush_windows()
+            svc.drain(120)
         _sync(svc.torch_device)
         launches = K.launch_counts()
     finally:
@@ -2091,7 +2173,7 @@ def _live_agent(device: str) -> tuple:
     out = {"binary": str(exe.relative_to(Path.cwd().resolve())) if exe.is_absolute() else str(exe),
            "stamp": stamp, "gxx_build_s": build_s, "records": srv.records, "frames": srv.frames,
            "windows": [b.window_start_ms for b in windows], "edges_per_window": [b.n_edges for b in windows],
-           "launches": launches, "vs_plain_versions": vs_plain}
+           "launches": launches, "compile_plane": compile_plane, "vs_plain_versions": vs_plain}
     emit("serve_live_agent", out)
     return launches, out
 
@@ -2183,6 +2265,206 @@ def phase_serve_live(native_host: dict, device: str = "cuda") -> dict:
     _live_cli()
     _live_chaos()
     return {"serve_live": inproc, "serve_live_agent": agent}
+
+
+# -- the sanitizers and the device-side observability -------------------------
+
+# config3's GAT on the native engine and store, cut to one full window and
+# a tenth: the lock-order monitor's run
+SANITIZE_RUN = ("testconfig/config3_10k_mixed.json", 1.1,
+                {"model": "gat", "src_gather": "banded", "edge_layout": "blocked"},
+                {"engine_backend": "native", "renumber_nodes": True, "edge_layout": "blocked"})
+
+
+def phase_sanitize(device: str = "cuda", run=SANITIZE_RUN) -> dict:
+    """The Service on the card built under ``lockorder.instrument()`` (its
+    queues, the native store, the aggregators and every lock the run
+    creates wrapped), GAT banded, renumbered and blocked on config3's
+    traffic through the C++ engine and window accumulator (K1-K3): the
+    observed lock-order graph acyclic, every window scored, each equal to
+    its rescore on the plain versions (max error 0.0); the compile plane
+    and budgets as in every serve run."""
+    from alaz_tpu_torch.config import ModelConfig, RuntimeConfig
+    from alaz_tpu_torch.models.registry import init_params
+    from alaz_tpu_torch.sanitize import lockorder
+
+    path, duration_s, model_kw, runtime_kw = run
+    sim_cfg, full_s = _replay_config(path, duration_s) if isinstance(path, str) else (path, None)
+    mcfg = ModelConfig(**model_kw)
+    cfg = RuntimeConfig(model=mcfg, window_s=1.0, score_batch_windows=1, **runtime_kw)
+    params = init_params(mcfg, key=0, device=device)
+    t0 = time.perf_counter()
+    with lockorder.instrument() as mon:
+        served = _serve_once(cfg, params, sim_cfg=sim_cfg, device=device, use_native_ingest=True)
+    served_s = time.perf_counter() - t0
+    graph = mon.graph_summary()
+    mon.assert_acyclic()
+    require(graph["locks"] >= 8 and graph["acquisitions"] > 100, f"sanitize: a thin lock graph {graph}")
+    require(served["summary"]["windows_scored"] >= 1, "sanitize: no window scored")
+    _require_launches("gat", served)
+    with plain_kernels():
+        plain = _serve_once(cfg, params, backlog=served["windows"], device=device)
+    vs_plain = _scores_agree("sanitize vs plain", served["scores"], plain["scores"])
+    require(vs_plain["max_abs_err"] == 0.0, f"sanitize: scores differ from the plain versions' by "
+                                             f"{vs_plain['max_abs_err']}")
+    out = {"replay": {"config": path if isinstance(path, str) else None,
+                      "testDuration_s": [full_s, sim_cfg.test_duration_s]},
+           "lock_graph": graph, "acyclic": True, "violations": len(mon.violations),
+           "serial": {k: served["summary"][k] for k in ("windows_scored", "score_dispatches", "events_per_s",
+                                                         "launches", "compile_plane")},
+           "vs_plain_versions": vs_plain, "instrumented_run_s": served_s,
+           "seconds": time.perf_counter() - t0}
+    print("lock graph:", json.dumps(graph))
+    emit("sanitize", out)
+    return {"sanitize_gat": served["summary"]["launches"]}
+
+
+GPU_ENV_SMI_FIELDS = "memory.total,memory.used,temperature.gpu,clocks.sm,power.draw"
+
+
+def _smi_values() -> list:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={GPU_ENV_SMI_FIELDS}", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return [float(v) for v in out.stdout.strip().splitlines()[0].split(",")]
+
+
+def phase_gpu_env() -> dict:
+    """The NVML collector (``runtime/gpu_env.py``) on the card: it
+    registers, with every default leg under the JAX package's gauge names;
+    its gauges read between two ``nvidia-smi`` readings agree with them:
+    device memory in MiB exactly, temperature within 3 °C, SM clock and
+    power within the two readings' range ±10%."""
+    from alaz_tpu_torch.runtime.gpu_env import DEFAULT_METRICS, GpuEnvCollector, gauge_suffix
+    from alaz_tpu_torch.runtime.metrics import Metrics
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    before = _smi_values()
+    metrics = Metrics()
+    require(GpuEnvCollector().register(metrics), "GpuEnvCollector: NVML answered nothing on the card")
+    gauges = {k: v for k, v in metrics.snapshot().items() if k.startswith("device")}
+    after = _smi_values()
+    for leg in DEFAULT_METRICS:
+        require(f"device0.{gauge_suffix(leg)}" in gauges, f"gpu_env: no {leg} gauge")
+    smi = {f: [b, a] for f, b, a in zip(GPU_ENV_SMI_FIELDS.split(","), before, after)}
+    total_mib = int(gauges["device0.runtime_hbm_total_bytes"]) // 2**20
+    require(total_mib == int(before[0]), f"gpu_env: memory.total {total_mib} MiB, nvidia-smi {before[0]}")
+    temp = gauges["device0.temperature_c"]
+    require(min(before[2], after[2]) - 3 <= temp <= max(before[2], after[2]) + 3,
+            f"gpu_env: temperature {temp} °C, nvidia-smi {before[2]} / {after[2]}")
+    for i, leg in ((3, "sm_clock_mhz"), (4, "power_draw_w")):
+        got = gauges[f"device0.{leg}"]
+        lo, hi = min(before[i], after[i]) * 0.9, max(before[i], after[i]) * 1.1
+        require(lo <= got <= hi, f"gpu_env: {leg} {got} outside [{lo}, {hi}] (nvidia-smi {before[i]}, {after[i]})")
+    out = {"card": card_line(), "gauges": gauges, "nvidia_smi": smi, "memory_total_mib": total_mib,
+           "seconds": time.perf_counter() - t0}
+    emit("gpu_env", out)
+    return out
+
+
+def phase_prefetch(batches, device: str = "cuda") -> dict:
+    """The slice phase's three n131072xe1048576 GraphSAGE windows (hidden
+    128, 2 layers, bf16, kernels on) iterated twice: through
+    ``WindowScorer`` (a pageable copy inside each score) and through
+    ``DevicePrefetcher`` (window N+1's copy from page-locked buffers on a
+    side stream while N scores), each timed with CUDA events and the host
+    clock; the scores equal bit for bit."""
+    from alaz_tpu_torch.config import ModelConfig
+    from alaz_tpu_torch.models.registry import init_params
+    from alaz_tpu_torch.runtime.pipeline import DevicePrefetcher
+    from alaz_tpu_torch.runtime.scorer import WindowScorer
+    from alaz_tpu_torch.train.trainstep import make_score_fn
+
+    t_phase = time.perf_counter()
+    cfg = ModelConfig()
+    params = init_params(cfg, key=0, device=device)
+    scorer = WindowScorer(cfg, params, device=device)
+    score_fn = make_score_fn(cfg, device)
+    dev = torch.device(device)
+
+    def timed(run) -> tuple:
+        _sync(dev)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2)) if dev.type == "cuda" else (None, None)
+        t0 = time.perf_counter()
+        if start is not None:
+            start.record()
+        scores, marks = run()
+        if end is not None:
+            end.record()
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        per = np.diff([t0] + marks).tolist()
+        return scores, {"host_s": wall, "device_ms": start.elapsed_time(end) if start is not None else None,
+                        "per_window_host_s": per}
+
+    def plain_feed():
+        scores, marks = [], []
+        for b in batches:
+            scores.append(scorer.score(b))
+            marks.append(time.perf_counter())
+        return scores, marks
+
+    def prefetched():
+        scores, marks = [], []
+        for b, tensors in DevicePrefetcher(batches, device=device):
+            scores.append(torch.sigmoid(score_fn(params, tensors)["edge_logits"][: b.n_edges]).cpu().numpy())
+            marks.append(time.perf_counter())
+        return scores, marks
+
+    plain_feed()  # warm both paths once
+    prefetched()
+    ref, without = timed(plain_feed)
+    got, with_pf = timed(prefetched)
+    ref2, without2 = timed(plain_feed)
+    got2, with_pf2 = timed(prefetched)
+    for r, g in zip(ref + ref2, got + got2):
+        require(r.shape == g.shape and np.array_equal(r, g), "prefetch: scores differ from WindowScorer's")
+    out = {"bucket": batches[0].bucket_key, "windows": len(batches),
+           "window_scorer": [without, without2], "device_prefetcher": [with_pf, with_pf2],
+           "bit_equal": True, "dispatch_recording": _dispatch_recording_cost(score_fn, params, batches[0], dev),
+           "seconds": time.perf_counter() - t_phase}
+    emit("prefetch", out)
+    return out
+
+
+def _dispatch_recording_cost(score_fn, params, batch, dev, reps: int = 10) -> dict:
+    """What the launch-budget recording costs a dispatch: one window's
+    ``score_apply`` and readback on staged tensors, timed with no compile
+    watcher open and with one open (each dispatch then reads the kernels'
+    launch counts twice), in blocks of ``reps``, in turns (off, on, on,
+    off); and ``dispatch()``'s own host time with a watcher open, over
+    10,000 empty blocks."""
+    from alaz_tpu_torch.sanitize.retrace import CompileWatcher, dispatch
+
+    graph = {k: torch.from_numpy(v).to(dev) for k, v in batch.device_arrays().items()}
+
+    def block() -> list:
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            score_fn(params, graph)["edge_logits"].cpu()
+            times.append(time.perf_counter() - t0)
+        return times
+
+    block()
+    off, on = [], []
+    for watched in (False, True, True, False):
+        if watched:
+            with CompileWatcher() as w:
+                on += block()
+            require(w.dispatch_total == reps, f"dispatch recording: {w.dispatch_total} of {reps} dispatches")
+        else:
+            off += block()
+    with CompileWatcher():
+        t0 = time.perf_counter()
+        for _ in range(10_000):
+            with dispatch("score_apply", graph):
+                pass
+        per_record = (time.perf_counter() - t0) / 10_000
+    return {"dispatch_ms_median_unwatched": 1e3 * statistics.median(off),
+            "dispatch_ms_median_watched": 1e3 * statistics.median(on),
+            "dispatch_ms_unwatched": [1e3 * t for t in off], "dispatch_ms_watched": [1e3 * t for t in on],
+            "record_us": 1e6 * per_record}
 
 
 # -- phase 6 ----------------------------------------------------------------
@@ -3218,6 +3500,7 @@ def main() -> int:
     print("tf32: off (torch.backends.cuda.matmul.allow_tf32 = False, cudnn.allow_tf32 = False)")
 
     phase_build()
+    phase_gpu_env()
     seeds = range(3)
     t0 = time.perf_counter()
     batches = [example_batch(**WINDOW, seed=s) for s in seeds]
@@ -3237,12 +3520,14 @@ def main() -> int:
     gsl, gat_scorer = phase_gat_slice(gat_batches)
     esl, experts_scorer = phase_experts_slice(batches)
     tsl, tgn_scorer = phase_tgn_slice(batches)
+    phase_prefetch(batches)
     serve_launches, serve_runs = phase_serve()
     native_launches, native_host = phase_serve_native(serve_runs)
     serve_launches.update(native_launches)
     serve_launches.update(phase_serve_process(serve_runs, native_host))
     serve_launches.update(phase_tenants())
     serve_launches.update(phase_serve_live(native_host))
+    serve_launches.update(phase_sanitize())
     train_cli = phase_train_cli()
     phase_serve_cli(train_cli["ckpt"])
     config3 = phase_train_cli_config3()

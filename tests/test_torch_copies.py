@@ -66,14 +66,15 @@ COPIES = {
     # (and native/agent_example.cc, stamped as the JAX Makefile stamps it)
     "graph/native.py": {
         "ported": {"<module docstring>", "_LIB_PATH", "build", "_load"},
-        "added": {"BUILD_DIR", "CXXFLAGS", "_LOAD_LOCK", "_compile", "_source_digest", "build_agent"},
+        "added": {"BUILD_DIR", "CXXFLAGS", "_LOAD_LOCK", "_compile", "_source_digest", "build_agent",
+                  "TSAN_CXXFLAGS", "build_tsan"},
     },
     "config.py": {"ported": {"ModelConfig"}},
     "obs/histogram.py": {},
     "obs/recorder.py": {},
     "obs/spans.py": {},
     "obs/scores.py": {},
-    "obs/device.py": {"dropped": {"CompileEventPlane", "_metric_safe"}},
+    "obs/device.py": {},
     "runtime/tenancy.py": {},
     "runtime/metrics.py": {
         "ported": {"device_gauges", "_DEVICE_MEM_KEYS"},
@@ -122,6 +123,9 @@ COPIES = {
     "shm/process_pool.py": {},
     # the module docstring names the port's CLI
     "replay/tenants.py": {"ported": {"<module docstring>"}},
+    "sanitize/__init__.py": {},
+    "sanitize/lockorder.py": {},
+    "runtime/__init__.py": {},
 }
 
 
@@ -314,3 +318,10 @@ def test_agent_example_is_its_source_byte_for_byte():
     so its ``ALZ_SOURCE_STAMP``, are the JAX package's."""
     assert (REPO / "alaz_tpu_torch/native/agent_example.cc").read_bytes() == (
         REPO / "alaz_tpu/native/agent_example.cc").read_bytes()
+
+
+def test_tsan_test_is_its_source_byte_for_byte():
+    """The port builds its own copy of the ThreadSanitizer harness; its
+    bytes, and so its ``ALZ_SOURCE_STAMP``, are the JAX package's."""
+    assert (REPO / "alaz_tpu_torch/native/tsan_test.cc").read_bytes() == (
+        REPO / "alaz_tpu/native/tsan_test.cc").read_bytes()

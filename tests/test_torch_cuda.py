@@ -765,3 +765,156 @@ def test_live_service_on_card_matches_plain(dev, tmp_path):
     plain = WindowScorer(cfg.model, init_params(cfg.model, key=0, device="cpu"), device="cpu")
     for b, sb in zip(windows, sunk):
         np.testing.assert_allclose(sb.score, plain.score(b), rtol=1e-4, atol=1e-4)
+
+
+def _smi(fields: str) -> list:
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return [float(v) for v in out.stdout.strip().splitlines()[0].split(",")]
+
+
+def test_nvml_collector_matches_nvidia_smi(dev):
+    """``GpuEnvCollector`` on the card: every default leg registered under
+    the JAX package's gauge names; device memory equal to nvidia-smi's
+    MiB, temperature within 3 °C, SM clock and power within the two
+    nvidia-smi readings taken around the gauges' ±10%."""
+    from alaz_tpu_torch.runtime.gpu_env import GpuEnvCollector
+    from alaz_tpu_torch.runtime.metrics import Metrics
+
+    fields = "memory.total,temperature.gpu,clocks.sm,power.draw"
+    before = _smi(fields)
+    m = Metrics()
+    assert GpuEnvCollector().register(m)
+    snap = m.snapshot()
+    after = _smi(fields)
+    for leg in ("tensorcore_duty_cycle_pct", "runtime_hbm_used_bytes", "runtime_hbm_total_bytes",
+                "power_draw_w", "sm_clock_mhz", "temperature_c"):
+        assert f"device0.{leg}" in snap, leg
+    assert int(snap["device0.runtime_hbm_total_bytes"]) // 2**20 == int(before[0])
+    assert abs(snap["device0.temperature_c"] - before[1]) <= 3
+    for i, leg in ((2, "sm_clock_mhz"), (3, "power_draw_w")):
+        lo, hi = min(before[i], after[i]) * 0.9, max(before[i], after[i]) * 1.1
+        assert lo <= snap[f"device0.{leg}"] <= hi, (leg, snap[f"device0.{leg}"], before[i], after[i])
+
+
+def test_service_start_counts_the_segment_build_and_holds_the_budgets(dev):
+    """A scoring Service on the card: ``start()`` is one ``segment`` build
+    event (``compile.events``, ``compile.segment``, a recorder ``compile``
+    event with ``duration_ms``); the windows it then scores build nothing
+    and each dispatch launches K1 twice and K2 once."""
+    from alaz_tpu_torch.config import ModelConfig, RuntimeConfig, SimulationConfig
+    from alaz_tpu_torch.events.intern import Interner
+    from alaz_tpu_torch.models.registry import init_params
+    from alaz_tpu_torch.replay.simulator import Simulator
+    from alaz_tpu_torch.runtime.service import Service
+    from alaz_tpu_torch.sanitize.retrace import STEADY_STATE_BUDGETS, retrace_budget
+
+    cfg = RuntimeConfig(model=ModelConfig(dtype="float32"))
+    interner = Interner()
+    svc = Service(config=cfg, interner=interner, model_state=init_params(cfg.model, key=0, device="cuda"),
+                  device="cuda")
+    sim = Simulator(SimulationConfig(test_duration_s=3.0, **_CARD_SIM), interner=interner)
+    launches = {"score_apply": {"scatter_sum_sorted": 2, "segment_expand_sorted": 1}}
+    svc.start()
+    try:
+        snap = svc.metrics.snapshot()
+        assert snap["compile.events"] >= 1 and snap["compile.segment"] == 1
+        (ev,) = [e for e in svc.recorder.events() if e["kind"] == "compile"]
+        assert ev["fn"] == "segment" and ev["duration_ms"] >= 0.0
+        with retrace_budget(STEADY_STATE_BUDGETS, launches=launches) as w:
+            for m in sim.setup():
+                svc.aggregator.process_k8s(m)
+            svc.aggregator.process_tcp(sim.tcp_events())
+            for b in sim.iter_l7_batches():
+                svc.aggregator.process_l7(b)
+            svc.flush_windows()
+            svc.drain(timeout_s=120)
+        assert w.dispatch_total == svc.score_dispatches == svc.scored_batches == 3
+        after = svc.metrics.snapshot()
+        assert {k: v for k, v in after.items() if k.startswith("compile.")} == {
+            k: v for k, v in snap.items() if k.startswith("compile.")}
+    finally:
+        svc.stop()
+
+
+def test_segment_softmax_on_card_routes_through_k1_and_k2(dev):
+    """``segment_softmax(use_pallas=True)`` on CUDA tensors: its two
+    broadcasts launch K2, its denominator K1; f32 results within 1e-5 of
+    the plain versions on the CPU, finite gradients on the all-masked pad
+    rows."""
+    from alaz_tpu_torch.ops.segment import segment_softmax
+
+    rng = np.random.default_rng(5)
+    n, e, pad = 1024, 20_000, 500
+    dst = np.concatenate([np.sort(rng.integers(0, 700, e - pad)), np.full(pad, n - 1)]).astype(np.int32)
+    mask = np.arange(e) < e - pad
+    logits = rng.normal(size=(e, 4)).astype(np.float32)
+    ref = segment_softmax(torch.from_numpy(logits), torch.from_numpy(dst), n, torch.from_numpy(mask), True)
+    x = torch.from_numpy(logits).cuda().requires_grad_(True)
+    K.reset_launch_counts()
+    got = segment_softmax(x, torch.from_numpy(dst).cuda(), n, torch.from_numpy(mask).cuda(), True)
+    counts = K.launch_counts()
+    assert (counts["scatter_sum_sorted"], counts["segment_expand_sorted"]) == (1, 2)
+    torch.testing.assert_close(got.cpu(), ref, rtol=1e-5, atol=1e-5)
+    got.sum().backward()
+    assert torch.isfinite(x.grad).all() and float(x.grad[~torch.from_numpy(mask).cuda()].abs().max()) == 0.0
+
+
+def test_prefetcher_on_card_feeds_the_same_scores(dev):
+    """``DevicePrefetcher`` on the card: the windows in order, scores
+    bit-equal to the same windows through ``WindowScorer``."""
+    from alaz_tpu_torch.config import ModelConfig
+    from alaz_tpu_torch.models.registry import init_params
+    from alaz_tpu_torch.replay.synth import example_batch
+    from alaz_tpu_torch.runtime.pipeline import DevicePrefetcher
+    from alaz_tpu_torch.runtime.scorer import WindowScorer
+    from alaz_tpu_torch.train.trainstep import make_score_fn
+
+    cfg = ModelConfig()
+    params = init_params(cfg, key=0, device="cuda")
+    wins = [example_batch(n_pods=2000, n_svcs=200, n_edges=20_000, seed=s) for s in range(4)]
+    ref = WindowScorer(cfg, params, device="cuda").score_windows(wins)
+    fn = make_score_fn(cfg, "cuda")
+    pre = DevicePrefetcher(wins, device="cuda")
+    got = []
+    for b, tensors in pre:
+        assert all(t.is_cuda for t in tensors.values())
+        got.append(torch.sigmoid(fn(params, tensors)["edge_logits"][: b.n_edges]).cpu().numpy())
+    assert pre.copies == 4
+    for g, r in zip(got, ref):
+        assert np.array_equal(g, r)
+    # a caller that stops early stops the staging thread
+    import threading
+
+    it = iter(DevicePrefetcher(wins, device="cuda"))
+    next(it)
+    it.close()
+    assert not any(t.name == "alaz-prefetch" for t in threading.enumerate())
+
+
+def test_no_implicit_transfers_on_card(dev):
+    """Under the guard a synchronizing read raises; a GraphSAGE dispatch on
+    staged tensors with its readback declared explicit passes."""
+    from alaz_tpu_torch.config import ModelConfig
+    from alaz_tpu_torch.models.registry import init_params
+    from alaz_tpu_torch.replay.synth import example_batch
+    from alaz_tpu_torch.sanitize.retrace import explicit_transfer, no_implicit_transfers
+    from alaz_tpu_torch.train.trainstep import make_score_fn
+
+    cfg = ModelConfig()
+    params = init_params(cfg, key=0, device="cuda")
+    b = example_batch(n_pods=2000, n_svcs=200, n_edges=20_000, seed=0)
+    graph = {k: torch.from_numpy(v).pin_memory().cuda(non_blocking=True) for k, v in b.device_arrays().items()}
+    fn = make_score_fn(cfg, "cuda")
+    fn(params, graph)  # warm
+    torch.cuda.synchronize()
+    with no_implicit_transfers():
+        with pytest.raises(RuntimeError):
+            torch.ones(4, device="cuda").sum().item()
+        out = fn(params, graph)
+        with explicit_transfer():
+            logits = out["edge_logits"].cpu()
+    assert torch.cuda.get_sync_debug_mode() == 0
+    assert torch.isfinite(logits).all()
