@@ -98,18 +98,26 @@ def znorm_edge_feats(
     edge_mask: torch.Tensor,
     eps: float = 1e-8,
     clip: float = 8.0,
+    axis=None,
 ) -> torch.Tensor:
     """[..., E, F] → [..., E, F + EDGE_STAT_COLS]: append per-window
     z-scores of the stat columns, each edge measured against its window's
     fleet baseline (a leading axis holds stacked windows, each normed on
     its own, as ``jax.vmap`` of the single-window form would). Stats
     accumulate in f32 whatever the feature dtype; z of padded edges is
-    forced to 0."""
+    forced to 0. ``axis`` (a process group: one node shard of the window
+    on each rank) sums the count and both moments over the group before
+    the z-scores, so the node-sharded forwards measure each edge against
+    the whole window's baseline."""
     m = edge_mask.float()[..., None]
     stats = ef[..., :EDGE_STAT_COLS].float()
     cnt = m.sum(-2, keepdim=True)
     s1 = (stats * m).sum(-2, keepdim=True)
     s2 = (stats * stats * m).sum(-2, keepdim=True)
+    if axis is not None:
+        from alaz_tpu_torch.parallel.collectives import all_reduce_sum
+
+        cnt, s1, s2 = (all_reduce_sum(t, axis) for t in (cnt, s1, s2))
     cnt = torch.clamp(cnt, min=1.0)
     mean = s1 / cnt
     var = torch.clamp(s2 / cnt - mean * mean, min=0.0)

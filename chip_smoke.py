@@ -159,6 +159,23 @@ Phases, each raising on failure:
                 PyTorch path (the suite's config sets ``use_pallas=False``,
                 as the JAX package's does: no kernel launches), no
                 finding;
+   parallel  -- ``alaz_tpu_torch.parallel`` on W = min(cards, 4) ranks
+                spawned one a card (NCCL; W = 1 on one H100, where every
+                mesh axis has size 1), at full width (hidden 128, 2
+                layers, bf16, kernels on): the dp-sharded GraphSAGE train
+                step on W windows, 3 steps against the single-device step
+                (loss to rel 1e-5 each step; the params after the steps
+                equal at W = 1, within 1% of the update's L2 norm past
+                it; K1 3 / K2 3 a step); the experts' step on a (dp, tp,
+                ep) mesh, masked dispatch, 2 steps held alike; the dp-sharded GAT score step (banded: K1 2 / K2
+                3 / K3 3 a window) equal to ``WindowScorer``'s scores; the
+                node-sharded GraphSAGE and GAT forwards at S = W against
+                the single-device apply (within 2^-5 of the largest
+                logit; K1 (S + 1) and S a layer); the ring halo at the
+                window's shapes against a float64 segment sum (rtol 1e-4,
+                atol 1e-5); a GPipe pipeline against the sequential loop;
+                each leg's median milliseconds a call (CUDA events), the
+                NCCL version, the card;
 6. op path   -- the public ``ops.gather_scatter_sum`` (K4) over the GAT
                 windows' edges, launch counts read around those calls;
    train     -- GraphSAGE (uniform window), GAT banded (clustered window)
@@ -2659,6 +2676,300 @@ def phase_train_tgn(batches, device: str = "cuda") -> dict:
     return out
 
 
+# -- parallel: the sharded steps, node-sharded forwards, halo and GPipe on ranks ---
+
+PARALLEL_LR = 3e-3
+PARALLEL_STEPS = 3  # sharded train steps held against the single-device steps
+PARALLEL_EXPERT_STEPS = 2  # the experts' sharded steps: the second loss sees the first update
+# past one rank the dp all-reduce sums the windows' f32 gradients in
+# another order than the single-device backward, so they differ in their
+# last bits; AdamW's first steps normalise each element (lr·g/(|g|+eps)),
+# so a parameter whose gradient is near 0 may step either way (2·lr
+# apart). Held at 1% of the update's L2 norm: a few such flips in 10^5
+# parameters; a missing, zero or wrong-sign update misses by 100% or more
+PARALLEL_UPDATE_RTOL = 1e-2
+PARALLEL_TIMED = 5  # calls per leg timed by `device_ms` (the median is printed)
+# node-sharded forwards vs the single-device apply in bf16: the sharded
+# forward sums its remote and edge-feature messages apart in f32 where the
+# single-device one adds them in bf16 first, so a logit may land a few
+# bf16 ulps away: held within eight ulps of the largest (2^-5·max|ref|)
+NODE_SHARDED_TOL = 2.0**-5
+
+
+def _median_ms(fn, dev: torch.device) -> float | None:
+    """``device_ms`` over ``PARALLEL_TIMED`` calls of a warm path; None on
+    the CPU, which has no device time."""
+    return device_ms(fn, reps=PARALLEL_TIMED) if dev.type == "cuda" else None
+
+
+def _launches_of(fn, dev: torch.device) -> tuple:
+    """``fn()`` with the kernels' counts set to 0 just before and read just
+    after: (its result, the counts)."""
+    from alaz_tpu_torch.ops import segment_kernels as K
+
+    _sync(dev)
+    K.reset_launch_counts()
+    out = fn()
+    _sync(dev)
+    return out, K.launch_counts()
+
+
+def _parallel_train(tag, cfg, mesh, dp: int, window: dict, dev, steps: int) -> dict:
+    """``steps`` sharded train steps over a stack of ``dp`` windows on
+    ``mesh``, against the single-device step on the same card, params
+    and windows (the mean edge BCE over the windows, backward, AdamW:
+    ``make_train_step``'s body, which it is at one window). The loss is
+    held to rel 1e-5 each step; a later step's loss sees the earlier
+    updates. The params after the steps: equal at one rank, where every
+    gather is a copy and every all-reduce a sum of one; past one, within
+    ``PARALLEL_UPDATE_RTOL`` of the single-device update's norm."""
+    import torch.distributed as dist
+
+    from alaz_tpu_torch.models.registry import init_params
+    from alaz_tpu_torch.parallel.sharding import adamw, make_sharded_train_step, stack_graphs
+    from alaz_tpu_torch.replay.synth import example_batch
+    from alaz_tpu_torch.train.trainstep import backward, make_loss_fn
+
+    require(steps >= 2, f"{tag}: {steps} step(s): a later loss must see an update")
+    batches = [example_batch(**window, seed=s) for s in range(dp)]
+    stacked, _ = stack_graphs(batches)
+    labels = np.stack([window_labels(b) for b in batches])
+    params = init_params(cfg, key=0, device=dev)
+    step = make_sharded_train_step(cfg, mesh, adamw(PARALLEL_LR), params)
+    state = step.init(params)
+    # the single-device reference, on a copy of the same params
+    ref_params = init_params(cfg, key=0, device=dev)
+    start = {k: p.detach().clone() for k, p in ref_params.named_parameters()}
+    ref_opt = adamw(PARALLEL_LR)(list(ref_params.parameters()))
+    loss_fn = make_loss_fn(step.cfg)
+    all_graphs = [
+        (
+            {k: torch.as_tensor(np.ascontiguousarray(v[i]), device=dev) for k, v in stacked.items()},
+            torch.as_tensor(labels[i], device=dev),
+        )
+        for i in range(dp)
+    ]
+
+    def ref_step():
+        ref_opt.zero_grad(set_to_none=True)
+        loss = sum(loss_fn(ref_params, g, lab) for g, lab in all_graphs) / dp
+        backward(ref_params, loss)
+        ref_opt.step()
+        return float(loss.detach())
+
+    losses, ref_losses, launches = [], [], None
+    for i in range(steps):
+        loss, counts = _launches_of(lambda: float(step(state, stacked, labels)), dev)
+        launches = launches or counts
+        losses.append(loss)
+        ref_losses.append(ref_step())
+        require(abs(loss - ref_losses[-1]) <= 1e-5 * abs(ref_losses[-1]),
+                f"{tag}: step {i} loss {loss} vs single-device {ref_losses[-1]}")
+    with torch.no_grad():
+        full = step.gather(state.shards)
+        ref = dict(ref_params.named_parameters())
+        param_err = max(float((full[k] - p).abs().max()) for k, p in ref.items())
+        miss = sum(float((full[k] - p).double().square().sum()) for k, p in ref.items()) ** 0.5
+        moved = sum(float((p - start[k]).double().square().sum()) for k, p in ref.items()) ** 0.5
+    require(moved > 0, f"{tag}: the single-device steps left the params where they were")
+    world = dist.get_world_size()
+    tol = 0.0 if world == 1 else PARALLEL_UPDATE_RTOL * moved
+    require(miss <= tol, f"{tag}: params after {steps} steps {miss} from the single-device ones "
+            f"(update norm {moved}, limit {tol}, max |Δ| {param_err})")
+    step_ms = _median_ms(lambda: step(state, stacked, labels), dev)
+    return {"windows": dp, "steps": steps, "losses": losses, "single_device_losses": ref_losses,
+            "param_max_abs_err": param_err, "param_l2_err": miss, "update_l2": moved, "param_l2_limit": tol,
+            "launches": launches, "ms_per_step": step_ms, "dispatch": step.cfg.expert_dispatch}
+
+
+def parallel_rank(world: int, device: str = "cuda", window: dict = WINDOW, gat_window: dict = GAT_WINDOW) -> dict:
+    """Every leg of ``phase_parallel`` on this rank (one of ``world``), on
+    ``window``s and ``gat_window``s. Returns numpy/float results; the
+    kernels' launches of each leg are read around its main-path run
+    only."""
+    import torch.distributed as dist
+
+    from alaz_tpu_torch.config import MeshConfig, ModelConfig
+    from alaz_tpu_torch.convert import graph_to_torch
+    from alaz_tpu_torch.models.registry import get_model, init_params
+    from alaz_tpu_torch.ops.segment import segment_sum
+    from alaz_tpu_torch.parallel.gpipe import make_pipeline, sequential_reference
+    from alaz_tpu_torch.parallel.halo import make_halo_aggregate, shard_graph
+    from alaz_tpu_torch.parallel.mesh import make_mesh
+    from alaz_tpu_torch.parallel.sharded_model import (
+        make_node_sharded_gat,
+        make_node_sharded_graphsage,
+        rank_shard,
+        shard_graph_batch,
+    )
+    from alaz_tpu_torch.parallel.sharding import make_sharded_score_step, stack_graphs
+    from alaz_tpu_torch.replay.synth import example_batch
+    from alaz_tpu_torch.runtime.scorer import WindowScorer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device, torch.cuda.current_device()) if device == "cuda" else torch.device("cpu")
+    on_card = dev.type == "cuda"
+    rank = dist.get_rank()
+    out: dict = {"rank": rank, "device": str(dev)}
+
+    # -- the sharded train step: GraphSAGE, dp over a stack of `world` windows
+    dp_mesh = make_mesh(MeshConfig(dp=world), device=device)
+    out["train"] = _parallel_train("parallel train", ModelConfig(), dp_mesh, world, window, dev, PARALLEL_STEPS)
+
+    # -- the experts' sharded train step on a (dp, tp, ep) mesh, masked dispatch
+    tp = 2 if world % 2 == 0 else 1
+    ep = 2 if world % (tp * 2) == 0 else 1
+    ep_mesh = make_mesh(MeshConfig(dp=world // (tp * ep), tp=tp, ep=ep), device=device)
+    out["experts_train"] = _parallel_train(
+        "parallel experts train", ModelConfig(model="experts", expert_dispatch="masked"), ep_mesh,
+        world // (tp * ep), window, dev, PARALLEL_EXPERT_STEPS)
+    out["experts_train"]["mesh"] = [world // (tp * ep), tp, ep, 1]
+
+    # -- the dp-sharded score step: GAT, banded src gather, held to WindowScorer
+    gat_cfg = ModelConfig(model="gat", src_gather="banded")
+    gat_batches = [example_batch(**gat_window, seed=s) for s in range(world)]
+    gat_params = init_params(gat_cfg, key=0, device=dev)
+    score = make_sharded_score_step(gat_cfg, dp_mesh, gat_params)
+    stacked, _ = stack_graphs(gat_batches)
+    logits, launches = _launches_of(lambda: score(gat_params, stacked), dev)
+    scorer = WindowScorer(gat_cfg, gat_params, device=dev)
+    per = world // dp_mesh.size(0)
+    dp_idx = dp_mesh.get_local_rank("dp")
+    mine = gat_batches[dp_idx * per : (dp_idx + 1) * per]
+    require(logits.shape[0] == per == len(mine), f"gat score step: {logits.shape[0]} windows on this rank")
+    for b, row in zip(mine, logits):
+        ref = torch.as_tensor(scorer.score(b))
+        got = torch.sigmoid(row[: b.n_edges]).cpu()
+        require(torch.equal(got, ref), "parallel gat score step: scores differ from WindowScorer's")
+    out["gat_score"] = {"windows_here": int(logits.shape[0]), "launches": launches,
+                        "ms_per_call": _median_ms(lambda: score(gat_params, stacked), dev),
+                        "equal_to_window_scorer": True}
+
+    # -- the node-sharded forwards at S = world, against the single-device apply
+    sp_mesh = make_mesh(MeshConfig(sp=world), device=device)
+    s_idx = sp_mesh.get_local_rank("sp")
+    for tag, cfg, window, maker in (
+        ("node_sharded_graphsage", ModelConfig(), window, make_node_sharded_graphsage),
+        ("node_sharded_gat", gat_cfg, gat_window, make_node_sharded_gat),
+    ):
+        b = example_batch(**window, seed=0)
+        params = init_params(cfg, key=0, device=dev)
+        sharded, perm = shard_graph_batch(b, world)
+        shard = rank_shard(sharded, s_idx, dev)
+        run = maker(cfg, sp_mesh)
+        with torch.inference_mode():
+            (el, nl), launches = _launches_of(lambda: run(params, shard), dev)
+            ref = get_model(cfg.model)[1](params, graph_to_torch(b.device_arrays(), dev), cfg)
+            ms = _median_ms(lambda: run(params, shard), dev)
+        valid = torch.as_tensor(perm[s_idx] >= 0, device=dev)
+        slots = torch.as_tensor(perm[s_idx][perm[s_idx] >= 0], device=dev)
+        n_loc = nl.shape[1]
+        errs = {}
+        for key, got, want in (
+            ("edge_logits", el[0][valid], ref["edge_logits"][slots]),
+            ("node_logits", nl[0], ref["node_logits"][s_idx * n_loc : (s_idx + 1) * n_loc]),
+        ):
+            scale = float(ref[key].abs().max())
+            err = float((got - want).abs().max()) if got.numel() else 0.0
+            require(err <= NODE_SHARDED_TOL * scale, f"{tag} {key}: {err} past {NODE_SHARDED_TOL} x {scale}")
+            errs[key] = {"max_abs_err": err, "bound": NODE_SHARDED_TOL * scale}
+        out[tag] = {"shards": world, "edges_here": int(valid.sum()), "launches": launches,
+                    "vs_single_device": errs, "ms_per_forward": ms}
+
+    # -- the halo aggregate at the window's shapes, f32, against segment_sum
+    # (in float64: the f32 sum's own rounding is not charged to the ring)
+    b = example_batch(**window, seed=0)
+    src, dst = b.edge_src[: b.n_edges], b.edge_dst[: b.n_edges]
+    feats = np.random.default_rng(11).normal(size=(b.n_pad, F_MAIN)).astype(np.float32)
+    blocks = shard_graph(feats, src, dst, world)
+    halo = make_halo_aggregate(sp_mesh, axis="sp")
+    args = [torch.as_tensor(a[s_idx : s_idx + 1], device=dev) for a in blocks]
+    got, launches = _launches_of(lambda: halo(*args), dev)
+    x = torch.as_tensor(feats, device=dev)
+    want = segment_sum(x.double()[torch.as_tensor(src, device=dev).long()], torch.as_tensor(dst, device=dev).long(),
+                       b.n_pad)
+    n_loc = b.n_pad // world
+    want = want[s_idx * n_loc : (s_idx + 1) * n_loc].float()
+    err = float((got[0] - want).abs().max())
+    require(torch.allclose(got[0], want, rtol=1e-4, atol=1e-5), f"halo vs segment_sum: max |Δ| {err}")
+    out["halo"] = {"launches": launches, "max_abs_err": err, "rtol": 1e-4, "atol": 1e-5,
+                   "ms_per_call": _median_ms(lambda: halo(*args), dev)}
+
+    # -- GPipe over the `world` ranks: two layers a stage, against the loop
+    from torch.distributed.device_mesh import DeviceMesh
+
+    pp_mesh = DeviceMesh(dev.type, torch.arange(world), mesh_dim_names=("pp",))
+    rng = np.random.default_rng(2)
+    d, layers, m, rows = F_MAIN, 2 * world, 4 * world, 4096
+    w = torch.as_tensor(rng.normal(size=(layers, d, d)).astype(np.float32) * d**-0.5, device=dev)
+    bias = torch.as_tensor(rng.normal(size=(layers, d)).astype(np.float32) * 0.1, device=dev)
+    micro = torch.as_tensor(rng.normal(size=(m, rows, d)).astype(np.float32), device=dev)
+
+    def stage_fn(layer, h):
+        return torch.tanh(h @ layer["w"] + layer["b"])
+
+    pipe = make_pipeline(stage_fn, pp_mesh, axis="pp")
+    mine_layers = {"w": w[2 * rank : 2 * rank + 2], "b": bias[2 * rank : 2 * rank + 2]}
+    mine_micro = micro[4 * rank : 4 * rank + 4]
+    with torch.inference_mode():
+        got = pipe(mine_layers, mine_micro)
+        want = sequential_reference(stage_fn, {"w": w, "b": bias}, micro)[4 * rank : 4 * rank + 4]
+        err = float((got - want).abs().max())
+        require(torch.allclose(got, want, rtol=1e-5, atol=1e-5), f"gpipe vs sequential: max |Δ| {err}")
+        out["gpipe"] = {"stages": world, "layers": layers, "microbatches": [m, rows, d], "max_abs_err": err,
+                        "ms_per_call": _median_ms(lambda: pipe(mine_layers, mine_micro), dev)}
+    if on_card:
+        out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def phase_parallel(device: str = "cuda", world: int | None = None, windows: tuple = (WINDOW, GAT_WINDOW)) -> dict:
+    """``alaz_tpu_torch.parallel`` on W = min(cards, 4) spawned ranks (NCCL,
+    one a card): each leg of ``parallel_rank`` held to its single-device
+    counterpart, K1/K2 launched under sharding by the train steps, the
+    node-sharded forwards and the halo, K3 by the GAT score step.
+    Returns the launches of each leg, summed over the ranks."""
+    from alaz_tpu_torch.parallel.multislice import spawn
+
+    if world is None:
+        world = min(torch.cuda.device_count(), 4)
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()  # the ranks share the card(s) with this process
+    t0 = time.perf_counter()
+    ranks = spawn(parallel_rank, world, (world, device, *windows), device=device, timeout_s=900.0)
+    seconds = time.perf_counter() - t0
+    legs = ("train", "experts_train", "gat_score", "node_sharded_graphsage", "node_sharded_gat", "halo")
+    launches = {
+        f"parallel_{leg}": {k: sum(r[leg]["launches"][k] for r in ranks) for k in _counts(0, 0, 0, 0)}
+        for leg in legs
+    }
+    if on_card:
+        layers = 2
+        require(launches["parallel_train"] == _counts(3 * world, 3 * world, 0, 0),
+                f"parallel train step launches {launches['parallel_train']}")
+        require(launches["parallel_experts_train"] == _counts(3 * world, 3 * world, 0, 0),
+                f"parallel experts step launches {launches['parallel_experts_train']}")
+        require(launches["parallel_gat_score"] == _counts(2 * world, 3 * world, 3 * world, 0),
+                f"parallel gat score launches {launches['parallel_gat_score']}")
+        require(launches["parallel_node_sharded_graphsage"]
+                == _counts(world * layers * (world + 1), 0, 0, 0),
+                f"node-sharded graphsage launches {launches['parallel_node_sharded_graphsage']}")
+        require(launches["parallel_node_sharded_gat"] == _counts(world * layers * world, 0, 0, 0),
+                f"node-sharded gat launches {launches['parallel_node_sharded_gat']}")
+        require(launches["parallel_halo"] == _counts(world * world, 0, 0, 0),
+                f"halo launches {launches['parallel_halo']}")
+    out = {
+        "world": world, "seconds": seconds,
+        "nccl": ".".join(map(str, torch.cuda.nccl.version())) if on_card else None,
+        "card": card_line() if on_card else None,
+        "ranks": ranks,
+    }
+    emit("parallel", out)
+    return launches
+
+
 # -- the train CLI and the incident suite --------------------------------------
 
 TRAIN_CLI_FAMILIES = ("graphsage", "gat", "experts", "tgn")
@@ -3539,6 +3850,7 @@ def main() -> int:
         "experts": phase_train("train_experts", ModelConfig(model="experts"), batches[0]),
     }
     tgn_train = phase_train_tgn(batches)
+    parallel_launches = phase_parallel()
     launches = {
         "graphsage": sl["launches"], "gat": gsl["launches"], "experts": esl["launches"],
         "tgn": tsl["launches"], "gather_scatter_sum": op["launches"], **serve_launches,
@@ -3546,6 +3858,7 @@ def main() -> int:
         "train_tgn_unrolled": tgn_train["launches"],
         **{f"train_cli_{m}": r["launches"] for m, r in train_cli["runs"].items()},
         "train_cli_config3": config3["launches"],
+        **parallel_launches,
     }
     train_launches = {m: t["launches_forward_backward"] for m, t in trains.items()}
     train_launches["tgn_unrolled_3_windows"] = tgn_train["launches"]

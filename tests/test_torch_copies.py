@@ -129,6 +129,36 @@ COPIES = {
 }
 
 
+# Modules the port rewrote onto ``torch.distributed``, whose numpy
+# helpers (and constants) are copies: each ``copied`` definition is held
+# to its JAX source by syntax tree, and every other top-level definition
+# of the JAX source is ``ported`` (rewritten per rank in torch) or
+# ``dropped`` (no counterpart).
+PARTIAL_COPIES = {
+    "parallel/mesh.py": {
+        "copied": {"AXES", "mesh_shape_for"},
+        "ported": {"make_mesh"},
+    },
+    "parallel/halo.py": {
+        "copied": {"partition_edges_by_dst", "shard_graph"},
+        "ported": {"_hop_segment_sum", "ring_gather_scatter", "ring_gather_edges",
+                   "ring_attention_aggregate", "make_halo_aggregate"},
+    },
+    "parallel/sharded_model.py": {
+        "copied": {"SHARDED_GRAPH_KEYS", "shard_graph_batch", "unshard_edge_outputs"},
+        "ported": {"node_sharded_specs", "shard_block_starts", "_sharded_heads", "_maybe_znorm_sharded",
+                   "make_node_sharded_graphsage", "make_node_sharded_gat"},
+    },
+    "parallel/sharding.py": {
+        "copied": {"mesh_axis_names", "stack_graphs"},
+        "ported": {"param_pspec", "opt_state_pspec", "graph_pspec", "_ep_safe_cfg",
+                   "make_sharded_train_step", "make_sharded_score_step"},
+        # optax's key paths: the port's specs are keyed by parameter name
+        "dropped": {"_path_keys"},
+    },
+}
+
+
 class _Normalize(ast.NodeTransformer):
     """Rename the port's imports and strip the allowed definitions,
     recording which of them it met."""
@@ -197,6 +227,33 @@ def test_copy_equals_its_jax_source(rel):
     assert set(spec.get("dropped", ())) <= ref.met
     assert set(spec.get("added", ())) <= port.met
     assert port_dump == jax_dump
+
+
+def _top_level(path: Path, port: bool) -> dict:
+    """``{name: ast.dump}`` of a module's top-level definitions and
+    assignments, the port's imports renamed."""
+    tree = _Normalize({}, port=port).visit(ast.parse(path.read_text(), filename=str(path)))
+    out = {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out[node.name] = ast.dump(node, include_attributes=False)
+        elif isinstance(node, ast.Assign):
+            for t in node.targets:
+                if isinstance(t, ast.Name):
+                    out[t.id] = ast.dump(node, include_attributes=False)
+    return out
+
+
+@pytest.mark.parametrize("rel", sorted(PARTIAL_COPIES))
+def test_partial_copy_keeps_its_helpers(rel):
+    spec = PARTIAL_COPIES[rel]
+    port = _top_level(REPO / "alaz_tpu_torch" / rel, port=True)
+    ref = _top_level(REPO / "alaz_tpu" / rel, port=False)
+    for name in spec["copied"]:
+        assert port[name] == ref[name], f"{rel}: {name} is not its JAX source"
+    accounted = spec["copied"] | spec["ported"] | spec.get("dropped", set())
+    assert set(ref) <= accounted, f"{rel}: unlisted {sorted(set(ref) - accounted)}"
+    assert spec["ported"] <= set(port) and not (spec.get("dropped", set()) & set(port))
 
 
 def test_make_ingest_trace_is_a_copy():

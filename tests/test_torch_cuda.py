@@ -918,3 +918,76 @@ def test_no_implicit_transfers_on_card(dev):
             logits = out["edge_logits"].cpu()
     assert torch.cuda.get_sync_debug_mode() == 0
     assert torch.isfinite(logits).all()
+
+
+def _parallel_on_card() -> dict:
+    """One NCCL rank (world size 1, every mesh axis of size 1): the
+    dp-sharded GAT score step with the banded src gather against
+    ``WindowScorer``, and the node-sharded GraphSAGE forward against the
+    single-device apply, each with the kernels' launches read around it."""
+    from alaz_tpu_torch.config import MeshConfig, ModelConfig
+    from alaz_tpu_torch.convert import graph_to_torch
+    from alaz_tpu_torch.models import graphsage
+    from alaz_tpu_torch.models.registry import init_params
+    from alaz_tpu_torch.parallel.mesh import make_mesh
+    from alaz_tpu_torch.parallel.sharded_model import make_node_sharded_graphsage, rank_shard, shard_graph_batch
+    from alaz_tpu_torch.parallel.sharding import make_sharded_score_step, stack_graphs
+    from alaz_tpu_torch.replay.synth import example_batch
+    from alaz_tpu_torch.runtime.scorer import WindowScorer
+
+    mesh = make_mesh(MeshConfig())
+    cfg = ModelConfig(model="gat", src_gather="banded")
+    params = init_params(cfg, key=0)
+    batches = [example_batch(n_pods=3000, n_svcs=300, n_edges=20_000, seed=s, structure="community",
+                             layout="clustered") for s in range(2)]
+    stacked, _ = stack_graphs(batches)
+    score = make_sharded_score_step(cfg, mesh, params)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    logits = score(params, stacked)
+    torch.cuda.synchronize()
+    score_launches = K.launch_counts()
+    scorer = WindowScorer(cfg, params)
+    equal = [bool(torch.equal(torch.sigmoid(row[: b.n_edges]).cpu(), torch.as_tensor(scorer.score(b))))
+             for b, row in zip(batches, logits)]
+
+    sage_cfg = ModelConfig()
+    sage = init_params(sage_cfg, key=0)
+    b = batches[0]
+    sharded, perm = shard_graph_batch(b, 1)
+    run = make_node_sharded_graphsage(sage_cfg, mesh)
+    with torch.inference_mode():
+        K.reset_launch_counts()
+        el, nl = run(sage, rank_shard(sharded, 0))
+        torch.cuda.synchronize()
+        sage_launches = K.launch_counts()
+        ref = graphsage.apply(sage, graph_to_torch(b.device_arrays()), sage_cfg)
+    valid = perm[0] >= 0
+    got = el[0][torch.as_tensor(valid, device="cuda")].float().cpu()
+    want = ref["edge_logits"][torch.as_tensor(perm[0][valid], device="cuda")].float().cpu()
+    return {
+        "score_launches": score_launches, "equal": equal,
+        "sage_launches": sage_launches,
+        "edge_err": float((got - want).abs().max()), "edge_scale": float(want.abs().max()),
+        "node_err": float((nl[0].cpu() - ref["node_logits"].cpu()).abs().max()),
+        "node_scale": float(ref["node_logits"].abs().max()),
+    }
+
+
+def test_parallel_steps_on_card_launch_the_kernels(dev):
+    """``alaz_tpu_torch.parallel`` on one NCCL rank: the dp-sharded GAT
+    score step launches K1 2 / K2 3 / K3 3 a window and scores what
+    ``WindowScorer`` scores, bit for bit; the node-sharded GraphSAGE
+    forward at one shard launches K1 (1 hop + 1) a layer and holds to the
+    single-device apply within 2^-5 of the largest logit (it sums its
+    remote and edge-feature messages apart in f32)."""
+    from alaz_tpu_torch.parallel.multislice import spawn
+
+    out = spawn(_parallel_on_card, 1, timeout_s=300.0)[0]
+    assert out["score_launches"] == {"scatter_sum_sorted": 4, "segment_expand_sorted": 6,
+                                     "gather_rows_banded": 6, "pallas_gather_scatter_sum": 0}
+    assert out["equal"] == [True, True]
+    assert out["sage_launches"] == {"scatter_sum_sorted": 4, "segment_expand_sorted": 0,
+                                    "gather_rows_banded": 0, "pallas_gather_scatter_sum": 0}
+    assert out["edge_err"] <= 2.0**-5 * out["edge_scale"]
+    assert out["node_err"] <= 2.0**-5 * out["node_scale"]

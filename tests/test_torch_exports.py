@@ -3,9 +3,8 @@
 For each subpackage of ``alaz_tpu`` (the top-level package included),
 the port's twin exports what the reference exports: its ``__all__``, or,
 where the reference's ``__init__`` has none (``sanitize``), the public
-names it binds. The port may export more. The one exemption is
-``parallel``, whose port onto ``torch.distributed`` is still to come
-(ROADMAP §1, item 7).
+names it binds. The port may export more. No subpackage is exempt:
+``parallel``, ported onto ``torch.distributed``, is held like the rest.
 """
 
 from __future__ import annotations
@@ -19,7 +18,7 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
-NOT_YET_PORTED = {"parallel"}
+NOT_YET_PORTED: set = set()
 SUBPACKAGES = sorted(p.parent.name for p in (REPO / "alaz_tpu").glob("*/__init__.py"))
 
 
@@ -62,6 +61,21 @@ def test_the_new_exports_load_no_jax():
         "from alaz_tpu_torch.graph import GraphBuilder, WindowedGraphStore, EDGE_BLOCK_ROWS\n"
         "from alaz_tpu_torch.obs import CompileEventPlane\n"
         "from alaz_tpu_torch.ops import segment_mean, segment_softmax\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'alaz_tpu')))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_parallel_loads_no_jax():
+    """Every module of ``alaz_tpu_torch.parallel`` imports in a fresh
+    interpreter without loading jax or the JAX package."""
+    code = (
+        "import sys\n"
+        "import alaz_tpu_torch.parallel\n"
+        "from alaz_tpu_torch.parallel import (collectives, dryrun, gpipe, halo, mesh, multislice,\n"
+        "    sharded_model, sharding)\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'alaz_tpu')))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
