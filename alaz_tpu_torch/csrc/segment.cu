@@ -109,6 +109,54 @@
 //     into shared memory, the walk's short chains of L2 round trips, the
 //     combine) in two waves, and the row-starts kernel; the L2 row reads
 //     themselves cost a small part, as every edge reading one row shows.
+//
+// SORT alaz_sort_by_ids
+//     Replaces no TPU kernel. The JAX package's backward passes of K3 and
+//     K4 are XLA scatters (alaz_tpu/ops/pallas_segment.py, the custom_vjp
+//     backward rules of gather_rows_banded and pallas_gather_scatter_sum);
+//     the port sums them with K4 over the ids' stable sort instead, in a
+//     fixed order, so that two runs give the same bits. This kernel is that
+//     sort: it replaces torch.argsort and the gathers by its permutation in
+//     K3's backward (segment_kernels.py unsorted_segment_sum) and K4's dx.
+//     It sorts the ids stably by the key clamp(id, -1, n_rows) + 1: every
+//     negative id sorts as 0, an id at or past n_rows as n_rows + 1, so
+//     every in-range edge lands where torch.argsort(ids, stable=True) puts
+//     it and K4 cuts the in-range edges into the same tiles. Out: the ids
+//     decoded (key - 1), the permutation (int32) and up to one int32 and one
+//     f32 payload carried into sorted order.
+//     Bound on the H100: bytes. The ids read once (4 B an edge), the sorted
+//     ids and the permutation written once (8 B), each payload read and
+//     written once (8 B): 12 MB, 3.76 us at E = 1M with no payload.
+//     Design: LSD radix passes over bit_length(n_rows + 1) bits, digits of
+//     at most 9 bits (two passes at N = 131,072), each pass reduce then scan,
+//     three kernels launched plainly (Programmatic Dependent Launch was no
+//     faster, PERF.md):
+//     - an upsweep counts each tile's digits (4,096 keys a CTA of 512
+//       threads) by shared-memory atomics into a warp's own counters:
+//       exact counts whatever their order;
+//     - a scan (a warp a digit) turns the digit-major [bins x tiles] counts
+//       into each tile's first slot of each digit, in tile order, which
+//       makes the sort stable across tiles;
+//     - a downsweep reloads its tile into shared memory by one bulk copy
+//       (cp.async.bulk under an mbarrier) while its counts load, ranks each
+//       key inside the tile in position order (the lanes of a warp
+//       instruction that share a digit found by one ballot a digit bit, a
+//       warp's digit counters in shared memory, scanned over warps), stages
+//       the tile in digit order in shared memory and writes each digit's
+//       run out contiguously.
+//     The first pass encodes the ids as it reads them and makes the edge
+//     indices itself; the last writes the decoded ids, the permutation and
+//     the payloads (gathered through the permutation, from L2). No int64,
+//     no atomics in global memory, no host sync: the passes and tiles come
+//     from E and n_rows. One tile (E <= 4,096: the train CLI's windows)
+//     runs the same passes with one CTA each: a one-CTA kernel for it
+//     saved ~5 us of device time a sort and left the train CLI's step
+//     where it was (PERF.md).
+//     What sets the pace (PERF.md): the downsweep's ranking, the ballots'
+//     instructions (2 CTAs an SM, one wave at E = 1M); then the writes,
+//     each tile's load and six launches. Between passes the keys and the
+//     permutation are written and read once more (16 B an edge, mostly in
+//     L2) and each upsweep reads the keys once more: the bound counts none.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -919,6 +967,418 @@ cudaError_t launch_gather_scatter(const void* x, const int* src, const int* dst,
   return cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// SORT: stable LSD radix sort of int32 ids by node
+// ---------------------------------------------------------------------------
+
+constexpr int kSortThreads = 512;                     // threads per sort CTA
+constexpr int kSortWarps = kSortThreads / 32;
+constexpr int kSortItems = 8;                         // keys a thread
+constexpr int kSortTile = kSortThreads * kSortItems;  // keys a tile: 4,096
+constexpr int kSortWarpKeys = 32 * kSortItems;        // a warp's run of the tile
+constexpr int kSortDigitBits = 9;                     // most bits a pass
+constexpr int kSortBins = 1 << kSortDigitBits;
+constexpr int kSortBinsPerThread = (kSortBins + kSortThreads - 1) / kSortThreads;
+
+// A sort CTA's dynamic shared memory: the tile's keys and values (the bulk
+// copy's targets, then the tile staged in digit order), each warp's digit
+// counters, the tile's first slot and the pass's first global slot of each
+// digit, and the bulk copy's mbarrier.
+struct SortSmem {
+  int keys[kSortTile];
+  int vals[kSortTile];
+  int cnt[kSortWarps * kSortBins];
+  int start[kSortBins];
+  int goff[kSortBins];
+  int warp_sums[kSortWarps];
+  unsigned long long bar;
+};
+
+// 0 for a negative id, id + 1 in range, n_rows + 1 at or past n_rows
+__device__ __forceinline__ int sort_key(int id, int n_rows) {
+  return id < 0 ? 0 : (id >= n_rows ? n_rows + 1 : id + 1);
+}
+
+// the bits of the largest key, n_rows + 1; the passes split them as evenly
+// as they can, low bits first
+__host__ __device__ inline int sort_key_bits(int n_rows) {
+  int b = 0;
+  for (long long v = (long long)n_rows + 1; v > 0; v >>= 1) ++b;
+  return b;
+}
+__host__ __device__ inline int sort_passes(int key_bits) {
+  return (key_bits + kSortDigitBits - 1) / kSortDigitBits;
+}
+__host__ __device__ inline int sort_pass_bits(int key_bits, int passes, int p) {
+  return key_bits / passes + (p < key_bits % passes ? 1 : 0);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// exclusive prefix sum of v over the sort CTA's threads in order; total
+// gets the sum. Every thread of the CTA must call it. (K4's
+// block_exclusive_scan, for the sort's 512 threads.)
+__device__ __forceinline__ int sort_block_scan(int v, int* s_warp, int& total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) s_warp[warp] = x;
+  __syncthreads();
+  int before = 0;
+  total = 0;
+#pragma unroll
+  for (int i = 0; i < kSortWarps; ++i) {
+    const int t = s_warp[i];
+    before += i < warp ? t : 0;
+    total += t;
+  }
+  __syncthreads();  // s_warp is reused by the next scan
+  return before + x - v;
+}
+
+// Start loading the tile's n ints at keys (and at vals, if not null) into
+// shared memory: the 16-byte-aligned whole 16-byte part of each by one bulk
+// copy that thread 0 issues under the mbarrier, the rest by plain loads.
+// Returns whether the bulk copy was issued. Every thread must call, then
+// wait_sort_tile with what this returned.
+__device__ bool load_sort_tile(SortSmem& s, const int* keys, const int* vals, int n) {
+  auto bulk_bytes = [n](const int* g) -> unsigned {
+    return (reinterpret_cast<uintptr_t>(g) & 15) == 0 ? 4u * (unsigned)(n & ~3) : 0u;
+  };
+  const unsigned kb = bulk_bytes(keys);
+  const unsigned vb = vals ? bulk_bytes(vals) : 0u;
+  if (threadIdx.x == 0) {
+    const uint32_t bar = smem_u32(&s.bar);
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(1u) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    if (kb + vb) {
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(kb + vb)
+                   : "memory");
+      if (kb)
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+            ::"r"(smem_u32(s.keys)), "l"(reinterpret_cast<uint64_t>(keys)), "r"(kb), "r"(bar)
+            : "memory");
+      if (vb)
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+            ::"r"(smem_u32(s.vals)), "l"(reinterpret_cast<uint64_t>(vals)), "r"(vb), "r"(bar)
+            : "memory");
+    }
+  }
+  for (int i = (int)(kb / 4) + threadIdx.x; i < n; i += kSortThreads) s.keys[i] = __ldg(keys + i);
+  if (vals)
+    for (int i = (int)(vb / 4) + threadIdx.x; i < n; i += kSortThreads) s.vals[i] = __ldg(vals + i);
+  return kb + vb > 0;
+}
+
+// On return every thread sees the whole tile.
+__device__ void wait_sort_tile(SortSmem& s, bool bulk) {
+  __syncthreads();  // the mbarrier's init and the plain loads, for every thread
+  if (bulk) {
+    unsigned done = 0;
+    do {
+      asm volatile(
+          "{\n\t.reg .pred p;\n\t"
+          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n\t"
+          "selp.u32 %0, 1, 0, p;\n\t}"
+          : "=r"(done) : "r"(smem_u32(&s.bar)) : "memory");
+    } while (!done);
+  }
+}
+
+// Rank a warp's keys by digit in the warp's counters cnt (zeroed here):
+// key[j] sits at tile slot base + 32 j (base: the warp's first slot plus
+// the lane); a slot at or past n is left out. rank[j] = the keys of its
+// digit in the warp's slots before it. The lanes of one instruction that
+// share a digit find each other by a ballot a digit bit (a fixed cost,
+// where __match_any_sync's grows with the distinct digits), all of the
+// instructions' ballots first, for they do not depend on the counters;
+// then each group reads its counter and the lowest lane of it writes it
+// back, so no two lanes write one.
+__device__ __forceinline__ void warp_rank(const int (&key)[kSortItems], int base, int n, int shift,
+                                          int bits, int* cnt, int (&rank)[kSortItems]) {
+  const int lane = threadIdx.x & 31;
+  const int bins = 1 << bits;
+  for (int b = lane; b < bins; b += 32) cnt[b] = 0;
+  const unsigned below = (1u << lane) - 1u;
+  const bool partial = n < kSortTile;
+  unsigned peers[kSortItems];
+#pragma unroll
+  for (int j = 0; j < kSortItems; ++j) {
+    const unsigned d = (unsigned)(key[j] >> shift) & (bins - 1);
+    peers[j] = 0xffffffffu;
+#pragma unroll
+    for (int b = 0; b < kSortDigitBits; ++b) {
+      if (b < bits) {
+        const unsigned on = 0u - ((d >> b) & 1u);  // all ones where the bit is set
+        peers[j] &= ~(__ballot_sync(0xffffffffu, on) ^ on);
+      }
+    }
+    if (partial) {
+      const unsigned on = 0u - (unsigned)(base + 32 * j < n);
+      peers[j] &= ~(__ballot_sync(0xffffffffu, on) ^ on);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < kSortItems; ++j) {
+    const unsigned d = (unsigned)(key[j] >> shift) & (bins - 1);
+    const int c = cnt[d];
+    rank[j] = c + __popc(peers[j] & below);
+    __syncwarp();  // every lane has read before the group's lowest lane writes
+    if ((peers[j] & below) == 0 && base + 32 * j < n) cnt[d] = c + __popc(peers[j]);
+    __syncwarp();  // the next instruction's group of this digit reads the count
+  }
+}
+
+// After every warp's warp_rank: cnt[w][b] becomes the keys of digit b in
+// the warps before w, start[b] the tile's first slot of digit b. Every
+// thread must call; ends synchronized.
+__device__ void tile_digit_starts(SortSmem& s, int bins) {
+  __syncthreads();
+  const int b0 = threadIdx.x * kSortBinsPerThread;
+  int sum = 0;
+#pragma unroll
+  for (int q = 0; q < kSortBinsPerThread; ++q) {
+    const int b = b0 + q;
+    if (b < bins) {
+      int c[kSortWarps];
+#pragma unroll
+      for (int w = 0; w < kSortWarps; ++w) c[w] = s.cnt[w * kSortBins + b];
+      int run = 0;
+#pragma unroll
+      for (int w = 0; w < kSortWarps; ++w) {
+        s.cnt[w * kSortBins + b] = run;
+        run += c[w];
+      }
+      s.start[b] = run;
+      sum += run;
+    }
+  }
+  int total;
+  int at = sort_block_scan(sum, s.warp_sums, total);
+#pragma unroll
+  for (int q = 0; q < kSortBinsPerThread; ++q) {
+    const int b = b0 + q;
+    if (b < bins) {
+      const int c = s.start[b];
+      s.start[b] = at;
+      at += c;
+    }
+  }
+  __syncthreads();
+}
+
+// One pass over the tile in shared memory: each thread takes its keys (the
+// first pass encodes the ids and makes the values, the edge indices from
+// t0), the warps rank them, and the tile is staged back in digit order,
+// stably. Every thread must call; ends synchronized.
+__device__ void sort_tile_pass(SortSmem& s, int n, int n_rows, int shift, int bits, bool first,
+                               int t0) {
+  const int warp = threadIdx.x >> 5;
+  const int base = warp * kSortWarpKeys + (threadIdx.x & 31);
+  int key[kSortItems], val[kSortItems], rank[kSortItems];
+#pragma unroll
+  for (int j = 0; j < kSortItems; ++j) {
+    const int i = base + 32 * j;
+    key[j] = i < n ? (first ? sort_key(s.keys[i], n_rows) : s.keys[i]) : 0;
+    val[j] = i < n ? (first ? t0 + i : s.vals[i]) : 0;
+  }
+  int* cnt = s.cnt + warp * kSortBins;
+  warp_rank(key, base, n, shift, bits, cnt, rank);
+  tile_digit_starts(s, 1 << bits);
+  const int mask = (1 << bits) - 1;
+#pragma unroll
+  for (int j = 0; j < kSortItems; ++j) {
+    if (base + 32 * j < n) {
+      const int d = (key[j] >> shift) & mask;
+      const int at = s.start[d] + cnt[d] + rank[j];
+      s.keys[at] = key[j];
+      s.vals[at] = val[j];
+    }
+  }
+  __syncthreads();
+}
+
+// Pass upsweep: counts[b * n_tiles + tile] = the keys of digit b in the
+// tile (first pass: the ids, encoded here), counted by shared-memory
+// atomics into a warp's own counters: exact whatever their order.
+__global__ void __launch_bounds__(kSortThreads)
+sort_upsweep_kernel(const int* __restrict__ keys, int* __restrict__ counts, int n_keys,
+                    int n_rows, int first, int shift, int bits, int n_tiles) {
+  __shared__ int s_cnt[kSortWarps * kSortBins];
+  const int warp = threadIdx.x >> 5;
+  const int t0 = blockIdx.x * kSortTile;
+  const int n = min(kSortTile, n_keys - t0);
+  const int base = warp * kSortWarpKeys + (threadIdx.x & 31);
+  const int bins = 1 << bits;
+  int key[kSortItems];
+#pragma unroll
+  for (int j = 0; j < kSortItems; ++j) {
+    const int i = base + 32 * j;
+    key[j] = i < n ? __ldg(keys + t0 + i) : 0;
+  }
+  int* cnt = s_cnt + warp * kSortBins;
+  for (int b = threadIdx.x & 31; b < bins; b += 32) cnt[b] = 0;
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < kSortItems; ++j) {
+    if (base + 32 * j < n) {
+      const int k = first ? sort_key(key[j], n_rows) : key[j];
+      atomicAdd(cnt + ((k >> shift) & (bins - 1)), 1);
+    }
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < bins; b += kSortThreads) {
+    int c = 0;
+#pragma unroll
+    for (int w = 0; w < kSortWarps; ++w) c += s_cnt[w * kSortBins + b];
+    counts[(size_t)b * n_tiles + blockIdx.x] = c;
+  }
+}
+
+// Pass scan, a warp a digit: each digit's counts become exclusive prefix
+// sums over the tiles, in tile order; totals[b] = the digit's keys.
+__global__ void __launch_bounds__(kSortThreads)
+sort_scan_kernel(int* __restrict__ counts, int* __restrict__ totals, int bins, int n_tiles) {
+  constexpr int kChunks = 8;  // 32 tiles each, loaded before the first is scanned
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kSortWarps + (threadIdx.x >> 5);
+  if (b >= bins) return;
+  int* c = counts + (size_t)b * n_tiles;
+  int carry = 0;
+  for (int t0 = 0; t0 < n_tiles; t0 += 32 * kChunks) {
+    int v[kChunks];
+#pragma unroll
+    for (int k = 0; k < kChunks; ++k) {
+      const int t = t0 + 32 * k + lane;
+      v[k] = t < n_tiles ? c[t] : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < kChunks; ++k) {
+      int x = v[k];
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, x, d);
+        if (lane >= d) x += y;
+      }
+      const int t = t0 + 32 * k + lane;
+      if (t < n_tiles) c[t] = carry + x - v[k];
+      carry += __shfl_sync(0xffffffffu, x, 31);
+    }
+  }
+  if (lane == 0) totals[b] = carry;
+}
+
+// Pass downsweep: the tile ranked and staged in shared memory, each key and
+// value written to its digit's slot of the pass: goff[d] (the tile's first
+// global slot of digit d: the digits before d over all tiles, then digit d
+// in the tiles before this one) plus its place among the tile's keys of d.
+// The last pass writes the ids decoded and gathers the payloads.
+__global__ void __launch_bounds__(kSortThreads)
+sort_downsweep_kernel(const int* __restrict__ keys_in, const int* __restrict__ vals_in,
+                      const int* __restrict__ counts, const int* __restrict__ totals,
+                      int* __restrict__ keys_out, int* __restrict__ vals_out,
+                      const int* __restrict__ pay_i, int* __restrict__ out_i,
+                      const float* __restrict__ pay_f, float* __restrict__ out_f, int n_keys,
+                      int n_rows, int shift, int bits, int n_tiles, int first, int last) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  SortSmem& s = *reinterpret_cast<SortSmem*>(smem);
+  const int t0 = blockIdx.x * kSortTile;
+  const int n = min(kSortTile, n_keys - t0);
+  const int bins = 1 << bits;
+  // this tile's counts and the digits' totals, loaded while the tile comes
+  // in and is ranked
+  const int b0 = threadIdx.x * kSortBinsPerThread;
+  int tot[kSortBinsPerThread], cts[kSortBinsPerThread];
+#pragma unroll
+  for (int q = 0; q < kSortBinsPerThread; ++q) {
+    const bool in = b0 + q < bins;
+    tot[q] = in ? __ldg(totals + b0 + q) : 0;
+    cts[q] = in ? __ldg(counts + (size_t)(b0 + q) * n_tiles + blockIdx.x) : 0;
+  }
+  wait_sort_tile(s, load_sort_tile(s, keys_in + t0, first ? nullptr : vals_in + t0, n));
+  sort_tile_pass(s, n, n_rows, shift, bits, first != 0, t0);
+  int sum = 0;
+#pragma unroll
+  for (int q = 0; q < kSortBinsPerThread; ++q) sum += tot[q];
+  int total;
+  int at = sort_block_scan(sum, s.warp_sums, total);
+#pragma unroll
+  for (int q = 0; q < kSortBinsPerThread; ++q) {
+    if (b0 + q < bins) s.goff[b0 + q] = at + cts[q] - s.start[b0 + q];
+    at += tot[q];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kSortItems; ++j) {
+    const int i = threadIdx.x + j * kSortThreads;
+    if (i < n) {
+      const int k = s.keys[i];
+      const int v = s.vals[i];
+      const int o = s.goff[(k >> shift) & (bins - 1)] + i;
+      keys_out[o] = last ? k - 1 : k;
+      vals_out[o] = v;
+      if (last && out_i) out_i[o] = __ldg(pay_i + v);
+      if (last && out_f) out_f[o] = __ldg(pay_f + v);
+    }
+  }
+}
+
+long long sort_scratch_words(int n_keys) {
+  const long long tiles = (n_keys + kSortTile - 1) / kSortTile;
+  return 2LL * n_keys + (long long)kSortBins * (tiles + 1);
+}
+
+// The passes on the stream, each kernel launched plainly. Pass p writes the
+// output buffers when an even number of passes follow it, else the scratch
+// pair, so the last writes the outputs and no pass writes what it reads.
+cudaError_t launch_sort(const int* ids, int* sorted_ids, int* perm, const int* pay_i, int* out_i,
+                        const float* pay_f, float* out_f, int* scratch, int n_keys, int n_rows,
+                        cudaStream_t stream) {
+  if (n_keys < 0 || n_rows < 0 || n_rows == INT_MAX) return cudaErrorInvalidValue;
+  if (n_keys == 0) return cudaSuccess;
+  const int smem = (int)sizeof(SortSmem);
+  cudaError_t err;
+  if ((err = allow_smem(sort_downsweep_kernel, smem)) != cudaSuccess) return err;
+  const int tiles = (n_keys + kSortTile - 1) / kSortTile;
+  int* keys_b = scratch;
+  int* vals_b = scratch + n_keys;
+  int* counts = scratch + 2LL * n_keys;
+  int* totals = counts + (long long)kSortBins * tiles;
+  const int key_bits = sort_key_bits(n_rows);
+  const int passes = sort_passes(key_bits);
+  const int* kin = ids;
+  const int* vin = nullptr;
+  for (int p = 0, shift = 0; p < passes; ++p) {
+    const int bits = sort_pass_bits(key_bits, passes, p);
+    const int bins = 1 << bits;
+    const bool to_out = ((passes - 1 - p) & 1) == 0;
+    int* kout = to_out ? sorted_ids : keys_b;
+    int* vout = to_out ? perm : vals_b;
+    sort_upsweep_kernel<<<tiles, kSortThreads, 0, stream>>>(kin, counts, n_keys, n_rows, p == 0,
+                                                            shift, bits, tiles);
+    sort_scan_kernel<<<(bins + kSortWarps - 1) / kSortWarps, kSortThreads, 0, stream>>>(
+        counts, totals, bins, tiles);
+    sort_downsweep_kernel<<<tiles, kSortThreads, smem, stream>>>(
+        kin, vin, counts, totals, kout, vout, pay_i, out_i, pay_f, out_f, n_keys, n_rows, shift,
+        bits, tiles, p == 0, p == passes - 1);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    kin = kout;
+    vin = vout;
+    shift += bits;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -989,6 +1449,27 @@ int alaz_gather_scatter_sum(const void* x, const void* src, const void* dst, con
 
 // K4's live edges per tile: the carry scratch has 2 rows per tile.
 int alaz_gather_scatter_tile_edges(void) { return kGsTile; }
+
+// SORT. ids [n_keys] int32 in any order, sorted by clamp(id, -1, n_rows) + 1
+// (0 <= n_rows < INT_MAX); out sorted_ids (the clamped ids) and perm
+// [n_keys] int32; pay_i -> out_i [n_keys] int32 and pay_f -> out_f [n_keys]
+// f32 carried into sorted order, each pair null for no payload; scratch
+// [alaz_sort_scratch_words(n_keys)] int32.
+int alaz_sort_by_ids(const void* ids, void* sorted_ids, void* perm, const void* pay_i, void* out_i,
+                     const void* pay_f, void* out_f, void* scratch, int n_keys, int n_rows,
+                     void* stream) {
+  return launch_sort(static_cast<const int*>(ids), static_cast<int*>(sorted_ids),
+                     static_cast<int*>(perm), static_cast<const int*>(pay_i),
+                     static_cast<int*>(out_i), static_cast<const float*>(pay_f),
+                     static_cast<float*>(out_f), static_cast<int*>(scratch), n_keys, n_rows,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// The sort's int32 scratch words for n_keys ids.
+long long alaz_sort_scratch_words(int n_keys) { return sort_scratch_words(n_keys); }
+
+// The sort's keys per tile (a CTA each in every pass).
+int alaz_sort_tile_keys(void) { return kSortTile; }
 
 #ifdef ALAZ_K4_TIMELINE
 // Copy K4's timeline of the last launch ([kTimelineCtas, 5] u64) to host.

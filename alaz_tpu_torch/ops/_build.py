@@ -42,6 +42,9 @@ _SIGNATURES = {
         _I, [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P]
     ),
     "alaz_gather_scatter_tile_edges": (_I, []),
+    "alaz_sort_by_ids": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P]),
+    "alaz_sort_scratch_words": (ctypes.c_longlong, [_I]),
+    "alaz_sort_tile_keys": (_I, []),
     "alaz_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

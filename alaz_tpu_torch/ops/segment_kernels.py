@@ -33,6 +33,11 @@ JAX package's ``custom_vjp`` computes, on the kernels too:
   products in f32); ``dw[e] = Σ_f x[src[e], f]·g[dst[e], f]`` is a plain
   f32 row dot, as the JAX package leaves it to XLA.
 
+Both sorts are ``sort_by_ids``, a kernel of the port's own that replaces
+no TPU kernel (the JAX package's backward passes are XLA scatters): a
+stable radix sort of the ids on the card. It counts its launches in
+``sort_by_ids.launches``, apart from ``launch_counts()``'s four kernels.
+
 The backward passes take cotangents in any layout (an expanded or
 transposed one is made contiguous first) and run on the same device as
 the forward: the kernels on the card, the plain versions on the CPU.
@@ -318,8 +323,8 @@ def unsorted_segment_sum(g: torch.Tensor, ids: torch.Tensor, num_nodes: int) -> 
     weight: every product is exact and the order of the sum is fixed, so
     the result is deterministic. Ids outside [0, num_nodes) add nothing."""
     gk = _kernel_dtype(g).contiguous()
-    perm = torch.argsort(ids, stable=True).to(torch.int32)
-    dv = _run_k4(gk, perm, ids[perm], _rows_of_blocks(num_nodes))
+    sorted_ids, perm, _ = _run_sort(ids, num_nodes)
+    dv = _run_k4(gk, perm, sorted_ids, _rows_of_blocks(num_nodes))
     return dv[:num_nodes].to(g.dtype)
 
 
@@ -417,16 +422,24 @@ class _GatherScatterSum(torch.autograd.Function):
             w32 = live.float() if w32 is None else torch.where(live, w32, 0.0)
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            perm = torch.argsort(src, stable=True).to(torch.int32)
-            wp = None if w32 is None else w32[perm].contiguous()
-            n_x = x.shape[0]
-            dx = _run_k4(g, dst[perm], src[perm], _rows_of_blocks(n_x), wp)[:n_x].to(x.dtype)
+            dx = gather_scatter_dx(g, src, dst, w32, x.shape[0]).to(x.dtype)
         if ctx.needs_input_grad[4]:
             dw = (x[src].float() * g[dst]).sum(dim=1)
             if live is not None:
                 dw = torch.where(live, dw, 0.0)
             dw = dw.to(w.dtype)
         return dx, None, None, None, dw, None
+
+
+def gather_scatter_dx(g, src, dst, w32, n_x: int) -> torch.Tensor:
+    """K4's ``dx`` in f32: ``dx[s] = Σ_{src[e]=s} w[e]·g[dst[e]]``, K4 with
+    src and dst swapped over ``src``'s stable sort, which carries ``dst``
+    and the weights along, into
+    ``n_x`` rows rounded up to whole 128-row blocks, then cut back."""
+    payloads = (dst,) if w32 is None else (dst, w32.contiguous())
+    sorted_src, _, carried = _run_sort(src, n_x, payloads)
+    w_sorted = carried[1] if w32 is not None else None
+    return _run_k4(g, carried[0], sorted_src, _rows_of_blocks(n_x), w_sorted)[:n_x]
 
 
 def _lane_vec(f: int, x: torch.Tensor, out: torch.Tensor) -> int:
@@ -501,14 +514,92 @@ def _gather_scatter_sum_cuda(x, edge_src, edge_dst, num_nodes, edge_weight, bloc
 
 pallas_gather_scatter_sum.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# SORT: stable radix sort of int32 ids by node (K3's and K4's backward)
+# ---------------------------------------------------------------------------
+
+
+def sort_by_ids_plain(ids: torch.Tensor, n_rows: int, payloads=()) -> tuple:
+    """The sort's plain version: ``torch.argsort`` of the keys
+    ``clamp(id, -1, n_rows) + 1``, stable, then the gathers."""
+    keys = ids.clamp(-1, n_rows) + 1
+    perm = torch.argsort(keys, stable=True)
+    return (keys[perm] - 1).to(torch.int32), perm.to(torch.int32), tuple(p[perm] for p in payloads)
+
+
+def sort_by_ids(ids: torch.Tensor, n_rows: int, payloads=()) -> tuple:
+    """``(sorted_ids, perm, carried)`` for int32 ``ids`` in any order: the
+    stable sort by node, every negative id as -1 before row 0 and every id
+    at or past ``n_rows`` as ``n_rows`` after the last row, so each id in
+    range lands where ``torch.argsort(ids, stable=True)`` puts it.
+    ``sorted_ids`` are the clamped ids in that order, ``perm`` (int32) the
+    edge indices, ``carried`` each of ``payloads`` (at most one int32 and
+    one float32 tensor of one entry an id) in that order."""
+    return _run_sort(ids, n_rows, tuple(payloads))
+
+
+sort_by_ids.launches = 0
+
+
+def sort_tile_keys() -> int:
+    """Ids per tile of the sort's kernel (a CTA each in every pass)."""
+    return _build.library().alaz_sort_tile_keys()
+
+
+def _run_sort(ids, n_rows, payloads=()):
+    if ids.device.type == "cpu":
+        return sort_by_ids_plain(ids, n_rows, payloads)
+    return _sort_by_ids_cuda(ids, n_rows, payloads)
+
+
+def _sort_by_ids_cuda(ids, n_rows, payloads):
+    dev = ids.device
+    if dev.type != "cuda":
+        raise ValueError(f"sort_by_ids: no kernel for device {dev}")
+    _cuda_input(ids, "ids", dev, 1, torch.int32)
+    e = ids.shape[0]
+    if e >= 2**31 or not 0 <= n_rows < 2**31 - 1:
+        raise ValueError(f"sort_by_ids: {e} ids, n_rows={n_rows} must fit int32")
+    by_dtype = {}
+    for p in payloads:
+        _cuda_input(p, "payload", dev, 1)
+        if p.dtype not in (torch.int32, torch.float32) or p.dtype in by_dtype:
+            raise TypeError("sort_by_ids takes at most one int32 and one float32 payload")
+        if p.shape[0] != e:
+            raise ValueError(f"a payload has {p.shape[0]} entries for {e} ids")
+        by_dtype[p.dtype] = p
+    sorted_ids = torch.empty(e, dtype=torch.int32, device=dev)
+    perm = torch.empty(e, dtype=torch.int32, device=dev)
+    outs = {dt: torch.empty_like(p) for dt, p in by_dtype.items()}
+    carried = tuple(outs[p.dtype] for p in payloads)
+    if e == 0:
+        return sorted_ids, perm, carried
+    # each payload and its output, int32 then f32; a null pair for none
+    pairs = [t.data_ptr() if t is not None else None
+             for dt in (torch.int32, torch.float32) for t in (by_dtype.get(dt), outs.get(dt))]
+    lib = _build.library()
+    scratch = torch.empty(lib.alaz_sort_scratch_words(e), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.alaz_sort_by_ids(
+            ids.data_ptr(), sorted_ids.data_ptr(), perm.data_ptr(), *pairs,
+            scratch.data_ptr(), e, n_rows, _stream(dev),
+        )
+    _build.check(rc, "sort_by_ids")
+    sort_by_ids.launches += 1
+    return sorted_ids, perm, carried
+
+
 KERNELS = (
     scatter_sum_sorted, segment_expand_sorted, gather_rows_banded, pallas_gather_scatter_sum,
 )
 
 
 def reset_launch_counts() -> None:
+    """Every kernel's launch count to 0, the sort's too."""
     for fn in KERNELS:
         fn.launches = 0
+    sort_by_ids.launches = 0
 
 
 def launch_counts() -> dict:

@@ -28,7 +28,13 @@ Phases, each raising on failure:
                 (COO = blocked bit for bit, two calls alike);
    backward  -- each wrapper's backward pass at the same shapes against its
                 plain version or a float64 sum, with the kernel it launches
-                counted (K1's is K2, K2's is K1, K3's and K4's dx are K4);
+                counted (K1's is K2, K2's is K1, K3's and K4's dx are the
+                sort kernel and K4); the sort against its plain version on
+                both windows' src ids and at the train CLI's shapes (E =
+                128, one tile), and K3's backward and K4's dx on both
+                windows and K3's at those shapes against
+                ``torch.argsort`` + K4 (what the sort replaced), each bit
+                for bit;
 4. slice     -- three uniform windows of bucket n131072xe1048576 scored
                 through ``WindowScorer`` under the default ``ModelConfig``
                 (GraphSAGE, hidden 128, 2 layers, bf16, kernels on), with
@@ -180,11 +186,15 @@ Phases, each raising on failure:
                 windows' edges, launch counts read around those calls;
    train     -- GraphSAGE (uniform window), GAT banded (clustered window)
                 and the experts: one forward and backward with launch counts
-                read around it and every gradient held against the plain
+                read around it (GAT: a sort of edge_src for each of its
+                three K3 backwards) and every gradient held against the plain
                 versions', then AdamW steps with the loss falling; one
                 ``train_tgn_unrolled`` epoch over the three uniform windows;
 7. numbers   -- kernel times (CUDA events), bounds, plain-version and
-                library-call times, forward and in each backward use; for
+                library-call times, forward and in each backward use (the
+                sort alone, with its kernels' CUPTI times, and at the train
+                CLI's shapes; both backward passes in turns with the
+                argsort pass they replaced); for
                 K4 on each window also its device time without the host's,
                 the CUPTI time of its three kernels, the window's tile and
                 reuse counts, its phase timeline and its time with every
@@ -196,6 +206,9 @@ Not a phase: ``eval_matrix()`` runs ``python -m alaz_tpu_torch eval`` with
 its defaults on the card, timed per call, as a chip call of its own:
 
     python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.eval_matrix())"
+
+and ``sort_small()`` times the sort and the GAT ``train`` CLI's step at
+the CLI's shapes, to set two checkouts side by side.
 
 Output: JSON lines for each phase, then the kernels' JSON line, the
 card's name and power limit, and last the result line
@@ -236,6 +249,15 @@ K1_REPLACES = "alaz_tpu/ops/pallas_segment.py:184"  # scatter_sum_sorted (pallas
 K2_REPLACES = "alaz_tpu/ops/pallas_segment.py:346"  # segment_expand_sorted (pallas_call :332)
 K3_REPLACES = "alaz_tpu/ops/pallas_segment.py:541"  # gather_rows_banded (pallas_call :527)
 K4_REPLACES = "alaz_tpu/ops/pallas_segment.py:588"  # pallas_gather_scatter_sum (pallas_call :170)
+# the sort of K3's and K4's backward is the port's own: the JAX package's
+# backward passes (pallas_segment.py:575-582, :618-634) are XLA scatters
+SORT_REPLACES = ("none: no TPU kernel; replaces torch.argsort and its gathers in "
+                 "alaz_tpu_torch/ops/segment_kernels.py (K3's backward, K4's dx)")
+# the sort's launches by main-path run (outside launch_counts()'s four keys)
+SORT_LAUNCHES: dict = {}
+# (edges, rows) of the train CLI's sorts: its n128xe128 windows, and one
+# whole 4,096-key tile of the sort over the main bucket's rows
+SORT_SMALL = ((128, 128), (4_096, N_MAIN))
 
 
 def emit(tag: str, obj) -> None:
@@ -421,15 +443,55 @@ def _f64_sum(g: torch.Tensor, ids: torch.Tensor, n: int, w=None) -> torch.Tensor
     return torch.zeros((n, g.shape[1]), dtype=torch.float64, device=g.device).index_add_(0, ids.long(), src)
 
 
+def _argsort_unsorted_segment_sum(g, ids, n):
+    """K3's backward as it was built before the sort kernel:
+    ``torch.argsort``, the gather of the sorted ids, K4; the oracle of the
+    sort kernel's version, bit for bit."""
+    from alaz_tpu_torch.ops import segment_kernels as K
+
+    perm = torch.argsort(ids, stable=True).to(torch.int32)
+    return K._run_k4(K._kernel_dtype(g).contiguous(), perm, ids[perm], K._rows_of_blocks(n))[:n].to(g.dtype)
+
+
+def _argsort_dx(g32, src, dst, w32, n_x):
+    """K4's ``dx`` as it was built before the sort kernel:
+    ``torch.argsort`` of src, three gathers, K4 with src and dst swapped,
+    f32."""
+    from alaz_tpu_torch.ops import segment_kernels as K
+
+    perm = torch.argsort(src, stable=True).to(torch.int32)
+    wp = None if w32 is None else w32[perm].contiguous()
+    return K._run_k4(g32, dst[perm], src[perm], K._rows_of_blocks(n_x), wp)[:n_x]
+
+
+def _small_sort_ids(n_e: int, n_rows: int, gen, dev) -> tuple:
+    """Src and dst ids of a ``train`` CLI-sized window: ``n_e`` edges
+    over ``n_rows`` rows, the src ids drawn with every tenth one a hub's
+    and the last two out of range (-1 and ``n_rows``), the dst ids sorted."""
+    src = torch.randint(0, n_rows, (n_e,), generator=gen, device=dev, dtype=torch.int32)
+    src[::10] = n_rows // 2
+    src[-2:] = torch.tensor([-1, n_rows], dtype=torch.int32, device=dev)
+    dst = torch.randint(0, n_rows, (n_e,), generator=gen, device=dev, dtype=torch.int32).sort().values
+    return src, dst
+
+
 def phase_backward(batch, gat_batch, dev: torch.device) -> dict:
     """Each wrapper's backward pass on the card at the training paths'
     shapes, against its plain version (or a float64 sum), and the kernel
     it launches, counted: K1's backward is a K2 launch (exact), K2's a K1
-    launch, K3's a K4 launch over the ids' stable sort, K4's ``dx`` a K4
-    launch with src and dst swapped, in f32. K3's and K4's backward run
-    twice and must give the same bits. Returns the max abs error per case."""
+    launch, K3's a K4 launch over the ids' stable sort (the sort kernel,
+    one launch), K4's ``dx`` a sort launch and a K4 launch with src and
+    dst swapped, in f32. The sort kernel against its plain version, bit
+    for bit, with and without ``dx``'s payloads: on both windows' src ids
+    and at the ``train`` CLI's shapes (``SORT_SMALL``: E = 128 over 128
+    rows, and one whole tile), one launch each; K3's backward and K4's
+    ``dx`` on both windows, and K3's backward at those shapes, bit for
+    bit against ``torch.argsort`` + K4, as they were built before the
+    sort kernel. K3's and K4's backward run twice and must give the same
+    bits. Returns the max abs error per case."""
     from alaz_tpu_torch.ops import segment_kernels as K
 
+    t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(4)
     on_card = dev.type == "cuda"
     n_pad = batch.n_pad
@@ -437,16 +499,49 @@ def phase_backward(batch, gat_batch, dev: torch.device) -> dict:
     e = dst.shape[0]
     errs, launches = {}, {}
 
-    def run(name, out, g, want):
+    def run(name, out, g, want, sorts=0):
         K.reset_launch_counts()
         out.backward(g, retain_graph=True)
         _sync(dev)
-        launches[name] = K.launch_counts()
+        launches[name] = dict(K.launch_counts(), sort_by_ids=K.sort_by_ids.launches)
         if on_card:
+            want = dict(want, sort_by_ids=sorts)
             require(launches[name] == want, f"{name}: backward launches {launches[name]}, expected {want}")
 
     def randn(shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    # the sort kernel, with K4's dx payloads (dst and f32 weights) and
+    # without, against its plain version: on both windows' src ids, and at
+    # the train CLI's shapes, where K3's backward is also held to argsort + K4
+    windows = [(ids_name, torch.as_tensor(b.edge_src, device=dev), torch.as_tensor(b.edge_dst, device=dev),
+                b.n_pad) for ids_name, b in (("clustered", gat_batch), ("uniform", batch))]
+    windows += [(f"e{n_e}_rows{n_rows}", *_small_sort_ids(n_e, n_rows, gen, dev), n_rows)
+                for n_e, n_rows in SORT_SMALL]
+    if on_card:
+        require(K.sort_tile_keys() == SORT_SMALL[1][0], f"the sort's tile is {K.sort_tile_keys()} keys")
+    for ids_name, src, bdst, n_rows in windows:
+        w = torch.rand(src.shape[0], generator=gen, device=dev) + 0.5
+        for pname, pays in (("", ()), ("_payloads", (bdst, w))):
+            name = f"sort_{ids_name}{pname}"
+            K.reset_launch_counts()
+            got = K.sort_by_ids(src, n_rows, pays)
+            _sync(dev)
+            if on_card:
+                require(K.sort_by_ids.launches == 1, f"{name}: {K.sort_by_ids.launches} launches")
+            ref = K.sort_by_ids_plain(src, n_rows, pays)
+            require(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+                    and all(torch.equal(x, y) for x, y in zip(got[2], ref[2])),
+                    f"{name} is not bit-exact")
+            errs[name] = float(max([(got[0] - ref[0]).abs().max(), (got[1] - ref[1]).abs().max()]
+                                   + [(x.float() - y.float()).abs().max() for x, y in zip(got[2], ref[2])]))
+        if src.shape[0] < e:
+            g = randn((src.shape[0], F_MAIN))
+            got = K.unsorted_segment_sum(g, src, n_rows)
+            require(torch.equal(got, _argsort_unsorted_segment_sum(g, src, n_rows)),
+                    f"k3_bwd_{ids_name}: differs from argsort + K4")
+        del src, bdst, w, got, ref
+    del windows
 
     # K1's backward, as GraphSAGE (bf16 → bf16, F=128) and GAT (bf16 → f32, F=132) call K1
     for name, f, out_dtype in (("k1_bwd", F_MAIN, None), ("k1_bwd_gat", F_MAIN + 4, torch.float32)):
@@ -477,42 +572,52 @@ def phase_backward(batch, gat_batch, dev: torch.device) -> dict:
         v = randn((b.n_pad, F_MAIN)).requires_grad_()
         out = K.gather_rows_banded(v, src, b.n_pad)
         g = randn(out.shape)
-        run(name, out, g, _counts(0, 0, 0, 1))
+        run(name, out, g, _counts(0, 0, 0, 1), sorts=1)
         first, v.grad = v.grad, None
         out.backward(g)
         require(torch.equal(first, v.grad), f"{name}: two backward passes differ")
+        require(torch.equal(first, _argsort_unsorted_segment_sum(g, src, b.n_pad)),
+                f"{name}: differs from argsort + K4")
         ref = _f64_sum(g, src, b.n_pad).to(v.dtype)
         err = (first.float() - ref.float()).abs()
         require(bool((err <= _k1_tolerance(ref)).all()), f"{name} disagrees with the float64 sum")
         errs[name] = float(err.max())
         del v, out, g, first, ref
 
-    # K4's backward (dx and dw) on the GAT window's edges, bf16 x, f32 weights
-    src = torch.as_tensor(gat_batch.edge_src, device=dev)
-    gdst = torch.as_tensor(gat_batch.edge_dst, device=dev)
-    x = randn((gat_batch.n_pad, F_MAIN)).requires_grad_()
-    w = (torch.rand(gdst.shape[0], generator=gen, device=dev) + 0.5).requires_grad_()
-    out = K.pallas_gather_scatter_sum(x, src, gdst, gat_batch.n_pad, w)
-    g = randn(out.shape)
-    run("k4_bwd", out, g, _counts(0, 0, 0, 1))
-    dx, dw = x.grad, w.grad
-    x.grad = w.grad = None
-    out.backward(g)
-    require(torch.equal(dx, x.grad) and torch.equal(dw, w.grad), "k4_bwd: two backward passes differ")
-    ref = _f64_sum(g[gdst.long()], src, gat_batch.n_pad, w.detach()).to(x.dtype)
-    err = (dx.float() - ref.float()).abs()
-    require(bool((err <= _k1_tolerance(ref)).all()), "k4_bwd dx disagrees with the float64 sum")
-    errs["k4_bwd_dx"] = float(err.max())
-    dw_ref = (x.detach()[src.long()].float() * g.float()[gdst.long()]).sum(dim=1)
-    dw_err = (dw - dw_ref).abs()
-    require(float(dw_err.max()) <= 1e-5 * float(dw_ref.abs().max()), "k4_bwd dw disagrees with its plain version")
-    errs["k4_bwd_dw"] = float(dw_err.max())
+    # K4's backward (dx and dw) on the GAT window's edges and the uniform
+    # window's, bf16 x, f32 weights
+    for win, b in (("", gat_batch), ("_uniform", batch)):
+        name = f"k4_bwd{win}"
+        src = torch.as_tensor(b.edge_src, device=dev)
+        gdst = torch.as_tensor(b.edge_dst, device=dev)
+        x = randn((b.n_pad, F_MAIN)).requires_grad_()
+        w = (torch.rand(gdst.shape[0], generator=gen, device=dev) + 0.5).requires_grad_()
+        out = K.pallas_gather_scatter_sum(x, src, gdst, b.n_pad, w)
+        g = randn(out.shape)
+        run(name, out, g, _counts(0, 0, 0, 1), sorts=1)
+        dx, dw = x.grad, w.grad
+        x.grad = w.grad = None
+        out.backward(g)
+        require(torch.equal(dx, x.grad) and torch.equal(dw, w.grad), f"{name}: two backward passes differ")
+        require(torch.equal(dx, _argsort_dx(g.float(), src, gdst, w.detach().float(), b.n_pad).to(x.dtype)),
+                f"{name} dx: differs from argsort + K4")
+        ref = _f64_sum(g[gdst.long()], src, b.n_pad, w.detach()).to(x.dtype)
+        err = (dx.float() - ref.float()).abs()
+        require(bool((err <= _k1_tolerance(ref)).all()), f"{name} dx disagrees with the float64 sum")
+        errs[f"{name}_dx"] = float(err.max())
+        dw_ref = (x.detach()[src.long()].float() * g.float()[gdst.long()]).sum(dim=1)
+        dw_err = (dw - dw_ref).abs()
+        require(float(dw_err.max()) <= 1e-5 * float(dw_ref.abs().max()), f"{name} dw disagrees with its plain version")
+        errs[f"{name}_dw"] = float(dw_err.max())
+        del src, gdst, x, w, out, g, dx, dw, ref
     emit("backward_vs_plain", {
-        "tolerance": "K1's backward bit-exact; K2's, K3's and K4's dx within one bf16 ulp "
+        "tolerance": "K1's backward bit-exact; the sort bit-exact; K3's backward (also at the train "
+                     "CLI's shapes) and K4's dx bit-exact against argsort + K4; K2's, K3's and K4's dx within one bf16 ulp "
                      "(2^-7·|ref| + 1e-5·max|ref|) of the plain version or the float64 sum; "
                      "K4's dw within 1e-5 of max|ref|",
         "max_abs_err": errs,
         "launches": launches,
+        "seconds": time.perf_counter() - t0,
     })
     return errs
 
@@ -527,15 +632,16 @@ def plain_kernels():
     restored on exit)."""
     from alaz_tpu_torch.ops import segment_kernels as K
 
-    saved = K._run_k1, K._run_k2, K._run_k3, K._run_k4
+    saved = K._run_k1, K._run_k2, K._run_k3, K._run_k4, K._run_sort
     K._run_k1 = K.scatter_sum_sorted_plain
     K._run_k2 = lambda v, edge_dst, num_nodes: K.segment_expand_sorted_plain(v, edge_dst)
     K._run_k3 = lambda v, ids, num_nodes: K.gather_rows_banded_plain(v, ids)
     K._run_k4 = K.pallas_gather_scatter_sum_plain
+    K._run_sort = K.sort_by_ids_plain
     try:
         yield
     finally:
-        K._run_k1, K._run_k2, K._run_k3, K._run_k4 = saved
+        K._run_k1, K._run_k2, K._run_k3, K._run_k4, K._run_sort = saved
 
 
 def _score_windows(cfg, batches, device: str):
@@ -2606,9 +2712,14 @@ def phase_train(tag: str, cfg, batch, device: str = "cuda", steps: int = 5) -> d
     loss_k, grads_k = _grads(cfg, params, graph, label)
     _sync(dev)
     launches = K.launch_counts()
+    sort_launches = K.sort_by_ids.launches
+    SORT_LAUNCHES[tag] = sort_launches
     if on_card:
         require(launches == TRAIN_LAUNCHES[cfg.model],
                 f"{tag}: launches of one forward and backward {launches}, expected {TRAIN_LAUNCHES[cfg.model]}")
+        # each K3 backward (a K4 launch: GAT's three) sorts edge_src
+        want = launches["pallas_gather_scatter_sum"] if cfg.src_gather == "banded" else 0
+        require(sort_launches == want, f"{tag}: {sort_launches} sort launches, expected {want}")
     with plain_kernels():
         loss_p, grads_p = _grads(cfg, params, graph, label)
     worst = _hold_grads(tag, grads_k, grads_p)
@@ -2629,6 +2740,7 @@ def phase_train(tag: str, cfg, batch, device: str = "cuda", steps: int = 5) -> d
         "bucket": batch.bucket_key,
         "positives": int(window_labels(batch).sum()),
         "launches_forward_backward": launches,
+        "sort_launches_forward_backward": sort_launches,
         "loss_kernels_vs_plain": [loss_k, loss_p],
         "grad_max_err_of_param_max": worst,
         "losses": losses,
@@ -3102,6 +3214,7 @@ def _run_cli(argv: list, device: str, replays: list | None = None) -> tuple:
         rc = cli.main(argv + ["--device", device])
         _sync(dev)
         launches = K.launch_counts()
+        probe.sort_launches = K.sort_by_ids.launches
     return rc, json.loads(out.getvalue().strip().splitlines()[-1]), probe, launches
 
 
@@ -3136,14 +3249,16 @@ def _train_cli(tag: str, argv: list, env: dict, device: str = "cuda") -> dict:
                 os.environ[k] = v
     loss_err = _rel_err(train.losses, train_p.losses)
     logit_err = _rel_err(np.concatenate(probe.logits), np.concatenate(probe_p.logits))
-    require(not any(launches_p.values()), f"{tag}: the plain run launched kernels {launches_p}")
+    require(not any(launches_p.values()) and probe_p.sort_launches == 0,
+            f"{tag}: the plain run launched kernels {launches_p}, the sort {probe_p.sort_launches}")
     require(rc == rc_p, f"{tag}: exit {rc} with the kernels, {rc_p} on the plain versions")
     require(loss_err <= 2.0**-4, f"{tag}: step losses differ from the plain run's by {loss_err} of its max")
     require(logit_err <= 2.0**-4, f"{tag}: eval logits differ from the plain run's by {logit_err} of their max")
     (scen, rec) = probe.records
     entry = {
         "argv": argv, "env": env, "exit_code": rc, "result": result,
-        "launches": launches, "scenario_rows": scen["rows"], "scenario_s": scen["s"],
+        "launches": launches, "sort_launches": probe.sort_launches,
+        "scenario_rows": scen["rows"], "scenario_s": scen["s"],
         "scenario_rows_per_s": scen["rows_per_s"], "buckets": scen["buckets"],
         "windows_train_eval": scen["windows_train_eval"], **{k: v for k, v in rec.items() if k != "call"},
         "plain": {"exit_code": rc_p, "result": result_p},
@@ -3185,6 +3300,10 @@ def phase_train_cli(device: str = "cuda") -> dict:
             if family == "gat":
                 require(n["gather_rows_banded"] > 0 and n["pallas_gather_scatter_sum"] > 0,
                         f"train CLI gat: K3/K4 not launched {n}")
+                require(run["sort_launches"] == n["pallas_gather_scatter_sum"],
+                        f"train CLI gat: {run['sort_launches']} sort launches "
+                        f"for {n['pallas_gather_scatter_sum']} K3 backwards")
+            SORT_LAUNCHES[f"train_cli_{family}"] = run["sort_launches"]
         runs[family] = run
     require((ckpt / str(runs["graphsage"]["result"]["steps"])).is_dir(), "train CLI: no checkpoint written")
     return {"runs": runs, "ckpt": ckpt}
@@ -3227,6 +3346,48 @@ def phase_scenarios(device: str = "cuda") -> dict:
     out = {"scenarios": len(reports), "command_s": time.perf_counter() - t0,
            "auroc": {r["scenario"]: r["detection"]["auroc"] for r in reports}}
     emit("scenarios", out)
+    return out
+
+
+def sort_small(cli_runs: int = 3) -> dict:
+    """The sort at the ``train`` CLI's shapes in the checkout it is
+    imported from: at each of ``SORT_SMALL`` (E = 128 also with ``dx``'s
+    payloads) its back-to-back and device times and its launches a call,
+    then ``cli_runs`` runs of ``train --model gat`` (banded, kernels on)
+    with each run's step time and sort launches. Not a phase of ``main``;
+    to hold two checkouts' sorts against each other, run it from each in
+    one call, in turns:
+
+        python3 -c "import chip_smoke; chip_smoke.sort_small()"
+    """
+    from alaz_tpu_torch.ops import segment_kernels as K
+
+    require(torch.cuda.is_available(), "sort_small runs on the card only")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    out = {"card": card_line(), "sorts": {}, "cli": []}
+    for n_e, n_rows in SORT_SMALL:
+        ids, dst = _small_sort_ids(n_e, n_rows, gen, dev)
+        w = torch.rand(n_e, generator=gen, device=dev)
+        for name, pays in ((f"e{n_e}_rows{n_rows}", ()), (f"e{n_e}_rows{n_rows}_payloads", (dst, w))):
+            if pays and n_e != SORT_SMALL[0][0]:
+                continue
+            K.reset_launch_counts()
+            K.sort_by_ids(ids, n_rows, pays)
+            out["sorts"][name] = {
+                "launches": K.sort_by_ids.launches,
+                "ms": time_ms(lambda: K.sort_by_ids(ids, n_rows, pays), iters=200),
+                "device_ms": device_ms(lambda: K.sort_by_ids(ids, n_rows, pays), reps=21),
+            }
+    env = {"MODEL": "gat", "SRC_GATHER": "banded", "EDGE_LAYOUT": "coo", "USE_PALLAS": "1"}
+    os.environ.update(env)
+    for _ in range(cli_runs):
+        rc, _, probe, launches = _run_cli(["train", "--model", "gat"], "cuda")
+        (rec,) = [r for r in probe.records if r["call"] == "train_on_batches"]
+        out["cli"].append({"exit_code": rc, "step_ms": rec["step_ms"], "steps": rec["steps"],
+                           "sort_launches": probe.sort_launches,
+                           "k4_launches": launches["pallas_gather_scatter_sum"]})
+    emit("sort_small", out)
     return out
 
 
@@ -3477,6 +3638,7 @@ def cupti_us(fn, names, calls: int = 10) -> dict:
 
 
 K4_KERNELS = ("block_starts_kernel", "gather_scatter_tile_kernel", "gather_scatter_carry_kernel")
+SORT_KERNELS = ("sort_upsweep_kernel", "sort_scan_kernel", "sort_downsweep_kernel")
 
 
 def k4_timeline(call, n_tiles: int) -> dict:
@@ -3577,17 +3739,27 @@ def numbers_backward(batches, gat_batches, dev) -> dict:
       library ``index_select``.
     - K1 as K2's backward: the sorted sum of a bf16 ``[E, 128]`` cotangent;
       library ``index_add_`` (bf16).
+    - The sort kernel (``sort_by_ids``) on the clustered window's src ids,
+      as K3's backward calls it: back-to-back time, device time, CUPTI time
+      of each of its kernels, the plain version, and on the uniform
+      window's ids and with ``dx``'s payloads (dst, f32 weights); library
+      ``torch.argsort(stable=True)`` (the permutation only). At the
+      ``train`` CLI's shapes (``SORT_SMALL``) its back-to-back and device
+      times, and ``torch.argsort``'s.
     - K4 as K3's backward (``unsorted_segment_sum``, over the clustered
-      window's src ids): the whole pass (the ids' stable sort, the gather
-      of the sorted ids, K4, the cast) and K4 alone; library ``index_add_``
-      of the f32 cotangent (pre-cast).
+      window's src ids): the whole pass (the sort kernel, K4, the cast),
+      the pass the sort kernel replaced (``torch.argsort``, the gather of
+      the sorted ids, K4, the cast) in turns with it (old, new, new, old),
+      and K4 alone; library ``index_add_`` of the f32 cotangent (pre-cast).
     - K4 as K4's ``dx`` (f32 ``g``, f32 weights, src and dst swapped): the
-      whole pass (sort, gathers, K4, cast) and K4 alone; library
-      ``index_add_`` in f32 of the products ``w·g[dst]`` (pre-formed: it
-      does less than the function).
+      whole pass (the sort carrying dst and the weights, K4, cast), the
+      pass it replaced (``torch.argsort``, three gathers, K4, cast) in turns
+      with it, and K4 alone; library ``index_add_`` in f32 of the products
+      ``w·g[dst]`` (pre-formed: it does less than the function).
     """
     from alaz_tpu_torch.ops import segment_kernels as K
 
+    t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(5)
     f = F_MAIN
     dst = torch.as_tensor(batches[0].edge_dst, device=dev)
@@ -3611,39 +3783,79 @@ def numbers_backward(batches, gat_batches, dev) -> dict:
     }
 
     src = torch.as_tensor(gat_batches[0].edge_src, device=dev)
+    gdst = torch.as_tensor(gat_batches[0].edge_dst, device=dev)
+    w = torch.rand(e, generator=gen, device=dev) + 0.5
+
+    def sort():
+        return K.sort_by_ids(src, N_MAIN)
+
+    uniform_src = torch.as_tensor(batches[0].edge_src, device=dev)
+    out["sort"] = {  # the sort kernel: 12 B an edge, 28 with dx's payloads
+        "ms": time_ms(sort),
+        "device_ms": device_ms(sort),
+        "cupti_us": cupti_us(sort, SORT_KERNELS),
+        "plain_ms": time_ms(lambda: K.sort_by_ids_plain(src, N_MAIN)),
+        "library_ms": time_ms(lambda: torch.argsort(src, stable=True)),
+        "uniform_ids_ms": time_ms(lambda: K.sort_by_ids(uniform_src, N_MAIN)),
+        "with_dx_payloads_ms": time_ms(lambda: K.sort_by_ids(src, N_MAIN, (gdst, w))),
+        "with_dx_payloads_bound_ms": _bound(e * 12 + 2 * e * 8, 0)[0],
+        "bound": _bound(e * 12, 0),
+    }
+    for n_e, n_rows in SORT_SMALL:
+        ids, _ = _small_sort_ids(n_e, n_rows, gen, dev)
+        out["sort"][f"e{n_e}_rows{n_rows}"] = {
+            "ms": time_ms(lambda: K.sort_by_ids(ids, n_rows)),
+            "device_ms": device_ms(lambda: K.sort_by_ids(ids, n_rows)),
+            "library_ms": time_ms(lambda: torch.argsort(ids, stable=True)),
+        }
+    del uniform_src, ids
+
     perm = torch.argsort(src, stable=True).to(torch.int32)
     sorted_src = src[perm]
     g32 = g_edges.float()
     acc32 = torch.zeros((N_MAIN, f), dtype=torch.float32, device=dev)
-    out["k3_bwd"] = {  # K4's kernel over the sorted ids, unweighted
-        "ms": time_ms(lambda: K.unsorted_segment_sum(g_edges, src, N_MAIN)),
+
+    def k3_pass():
+        return K.unsorted_segment_sum(g_edges, src, N_MAIN)
+
+    def k3_argsort():
+        return _argsort_unsorted_segment_sum(g_edges, src, N_MAIN)
+
+    turns = [time_ms(k3_argsort), time_ms(k3_pass), time_ms(k3_pass), time_ms(k3_argsort)]
+    out["k3_bwd"] = {  # the sort kernel and K4's kernel over the sorted ids, unweighted
+        "ms": (turns[1] + turns[2]) / 2,
+        "argsort_pass_ms": (turns[0] + turns[3]) / 2,
+        "turns_old_new_new_old_ms": turns,
         "k4_only_ms": time_ms(lambda: K._run_k4(g_edges, perm, sorted_src, N_MAIN)),
-        "argsort_ms": time_ms(lambda: torch.argsort(src, stable=True)),
         "library_ms": time_ms(lambda: acc32.index_add_(0, src, g32), iters=20),
         "bound": _bound(e * 4 + e * f * 2 + N_MAIN * f * 2, e * f),
     }
     del g32, acc32
 
-    gdst = torch.as_tensor(gat_batches[0].edge_dst, device=dev)
-    w = torch.rand(e, generator=gen, device=dev) + 0.5
     gn32 = torch.randn((N_MAIN, f), generator=gen, device=dev)
     perm_s = torch.argsort(src, stable=True).to(torch.int32)
     dst_by_src, src_sorted, w_sorted = gdst[perm_s], src[perm_s], w[perm_s]
 
     def dx_pass():
-        p = torch.argsort(src, stable=True).to(torch.int32)
-        return K._run_k4(gn32, gdst[p], src[p], N_MAIN, w[p]).bfloat16()
+        return K.gather_scatter_dx(gn32, src, gdst, w, N_MAIN).bfloat16()
+
+    def dx_argsort():
+        return _argsort_dx(gn32, src, gdst, w, N_MAIN).bfloat16()
 
     prods = gn32[gdst.long()] * w[:, None]
     acc32 = torch.zeros((N_MAIN, f), dtype=torch.float32, device=dev)
     rows_gdst = int(torch.unique(gdst).numel())
-    out["k4_bwd_dx"] = {  # K4's kernel, roles swapped, f32
-        "ms": time_ms(dx_pass),
+    turns = [time_ms(dx_argsort), time_ms(dx_pass), time_ms(dx_pass), time_ms(dx_argsort)]
+    out["k4_bwd_dx"] = {  # the sort kernel with payloads, K4's kernel, roles swapped, f32
+        "ms": (turns[1] + turns[2]) / 2,
+        "argsort_pass_ms": (turns[0] + turns[3]) / 2,
+        "turns_old_new_new_old_ms": turns,
         "k4_only_ms": time_ms(lambda: K._run_k4(gn32, dst_by_src, src_sorted, N_MAIN, w_sorted)),
         "library_ms": time_ms(lambda: acc32.index_add_(0, src, prods), iters=20),
         "bound": _bound(3 * e * 4 + rows_gdst * f * 4 + N_MAIN * f * 2, 2 * e * f),
     }
-    emit("backward_kernels", {k: dict(v, bound=list(v["bound"])) for k, v in out.items()})
+    emit("backward_kernels", {**{k: dict(v, bound=list(v["bound"])) for k, v in out.items()},
+                              "seconds": time.perf_counter() - t0})
     return out
 
 
@@ -3695,7 +3907,7 @@ def _as_backward(serves: str, n: dict, err: float) -> dict:
     return {
         "serves": serves, "ms": n["ms"], "bound_ms": n["bound"][0], "bound_by": n["bound"][1],
         "library_ms": n["library_ms"], "max_abs_err": err,
-        **{k: n[k] for k in ("k4_only_ms", "argsort_ms") if k in n},
+        **{k: n[k] for k in ("k4_only_ms", "argsort_pass_ms") if k in n},
     }
 
 
@@ -3753,6 +3965,15 @@ def phase_numbers(launches: dict, errs: dict, bwd_errs: dict, train_launches: di
     ]
     for entry in entries:
         entry["launches_per_train_step"] = per_step[entry["name"]]
+    srt = bwd["sort"]
+    sort_entry = _kernel_entry("sort_by_ids", SORT_REPLACES, sum(SORT_LAUNCHES.values()),
+                               bwd_errs["sort_clustered"], srt["ms"], srt["plain_ms"], srt["bound"],
+                               srt["library_ms"])
+    require(sort_entry["launches"] > 0, f"the sort kernel was not launched on the main path: {SORT_LAUNCHES}")
+    sort_entry["launches_by_path"] = dict(SORT_LAUNCHES)
+    sort_entry["launches_per_train_step"] = {
+        m: SORT_LAUNCHES[f"train_{m}"] for m in ("graphsage", "gat", "experts")}
+    entries.append(sort_entry)
     return entries
 
 

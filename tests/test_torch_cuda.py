@@ -12,7 +12,9 @@ magnitude; bf16 output within one bf16 ulp (≤ 2^-7·|ref|) of it. K4's
 reference takes its plain version's sums in float64 (``_k4_reference``).
 The backward passes: K1's (a K2 launch) bit-exact; K2's, K3's and K4's
 ``dx`` (a K1, K4 and K4 launch) held to the float64 sum at K1's
-tolerance.
+tolerance. The sort of K3's and K4's backward bit-exact against its plain
+version, and those two backward passes bit-exact against the
+``torch.argsort`` + K4 composition the sort replaced.
 """
 
 from __future__ import annotations
@@ -465,6 +467,164 @@ def test_gather_scatter_sum_backward(dev, dtype, weighted, layout, e):
             assert float(dw[n_edges:].abs().max()) == 0.0
 
 
+# -- the sort of K3's and K4's backward --------------------------------------
+
+
+def _window_src(kind: str) -> np.ndarray:
+    """The src ids of the smoke's 1M-edge windows (n131072): the uniform
+    GraphSAGE window's and the clustered GAT window's."""
+    from alaz_tpu_torch.replay.synth import example_batch
+
+    extra = {} if kind == "uniform" else dict(structure="community", layout="clustered")
+    return example_batch(n_pods=100_000, n_svcs=10_000, n_edges=1_048_576, seed=0, **extra).edge_src
+
+
+def _sort_case(case: str, e: int, n_rows: int, rng) -> np.ndarray:
+    ids = rng.integers(0, n_rows, e)
+    if case == "hub":
+        ids[:] = n_rows // 3
+    elif case == "out_of_range":
+        ids[::3] = -rng.integers(1, 2**31 - 1, ids[::3].size)
+        ids[1::5] = n_rows + rng.integers(0, 2**31 - 1 - n_rows, ids[1::5].size)
+    return ids.astype(np.int32)
+
+
+def _assert_sort_equal(got, ref):
+    assert torch.equal(got[0], ref[0]), "sorted ids"
+    assert torch.equal(got[1], ref[1]), "permutation"
+    assert len(got[2]) == len(ref[2])
+    for a, b in zip(got[2], ref[2]):
+        assert a.dtype == b.dtype and torch.equal(a, b), "payload"
+
+
+@pytest.mark.parametrize("kind", ["uniform", "clustered"])
+def test_sort_by_ids_on_the_windows_src_matches_plain(dev, kind):
+    """The sort kernel on the 1M-edge windows' src ids (N=131,072, two
+    9-bit passes), with an int32 and an f32 payload, bit for bit against
+    its plain version on the card; one launch counted; two runs alike."""
+    src = torch.as_tensor(_window_src(kind), device=dev)
+    e = src.shape[0]
+    pays = (torch.arange(e, dtype=torch.int32, device=dev).flip(0).contiguous(),
+            torch.randn(e, device=dev))
+    K.reset_launch_counts()
+    got = K.sort_by_ids(src, 131_072, pays)
+    torch.cuda.synchronize()
+    assert K.sort_by_ids.launches == 1
+    _assert_sort_equal(got, K.sort_by_ids_plain(src, 131_072, pays))
+    _assert_sort_equal(K.sort_by_ids(src, 131_072, pays), got)
+
+
+@pytest.mark.parametrize("n_rows", [128, 131_072, 2**20 + 128])
+@pytest.mark.parametrize("case", ["uniform", "hub", "out_of_range"])
+@pytest.mark.parametrize("size", ["1", "tile-1", "tile", "tile+1", "3tile+17"])
+def test_sort_by_ids_matches_plain(dev, size, case, n_rows):
+    """Bit for bit against the plain version, one launch: one id, one tile
+    less one, one tile (one CTA a pass), one more, three tiles and 17; one
+    hub id, ids below 0 and at or past ``n_rows``; one,
+    two and three passes (n_rows 128, 131,072, 2^20 + 128). Payloads of
+    both kinds ride along."""
+    tile = K.sort_tile_keys()
+    e = {"1": 1, "tile-1": tile - 1, "tile": tile, "tile+1": tile + 1, "3tile+17": 3 * tile + 17}[size]
+    rng = np.random.default_rng(e + n_rows)
+    ids = torch.as_tensor(_sort_case(case, e, n_rows, rng), device=dev)
+    pays = (torch.randint(-(2**31), 2**31 - 1, (e,), dtype=torch.int32, device=dev),
+            torch.randn(e, device=dev))
+    K.reset_launch_counts()
+    got = K.sort_by_ids(ids, n_rows, pays)
+    torch.cuda.synchronize()
+    assert K.sort_by_ids.launches == 1
+    _assert_sort_equal(got, K.sort_by_ids_plain(ids, n_rows, pays))
+    _assert_sort_equal(K.sort_by_ids(ids, n_rows), K.sort_by_ids_plain(ids, n_rows))
+
+
+def test_sort_by_ids_misaligned_empty_and_rejects(dev):
+    """Ids and payloads off 16-byte alignment (the bulk copy's: plain loads
+    take the rest); no ids launches nothing; what the kernel does not take
+    raises."""
+    base = torch.randint(-5, 140, (10_001,), dtype=torch.int32, device=dev)
+    wbase = torch.randn(10_001, device=dev)
+    ids, w = base[1:], wbase[1:]
+    assert ids.data_ptr() % 16 != 0
+    _assert_sort_equal(K.sort_by_ids(ids, 128, (w,)), K.sort_by_ids_plain(ids, 128, (w,)))
+    K.reset_launch_counts()
+    empty = K.sort_by_ids(ids[:0], 128, (w[:0],))
+    assert K.sort_by_ids.launches == 0 and empty[0].numel() == empty[1].numel() == empty[2][0].numel() == 0
+    with pytest.raises(TypeError):
+        K.sort_by_ids(ids.long(), 128)
+    with pytest.raises(TypeError):
+        K.sort_by_ids(ids, 128, (ids, ids))
+    with pytest.raises(TypeError):
+        K.sort_by_ids(ids, 128, (w.double(),))
+    with pytest.raises(ValueError):
+        K.sort_by_ids(ids, 128, (w[:-1],))
+    with pytest.raises(ValueError):
+        K.sort_by_ids(base[::2], 128)
+    with pytest.raises(ValueError):
+        K.sort_by_ids(ids, -1)
+    with pytest.raises(ValueError):
+        K.sort_by_ids(ids, 128, (wbase.cpu()[1:],))
+
+
+def _argsort_unsorted_segment_sum(g, ids, n):
+    """K3's backward as it was before the sort kernel: ``torch.argsort``,
+    the gather of the sorted ids, K4."""
+    perm = torch.argsort(ids, stable=True).to(torch.int32)
+    dv = K._run_k4(K._kernel_dtype(g).contiguous(), perm, ids[perm], K._rows_of_blocks(n))
+    return dv[:n].to(g.dtype)
+
+
+def _argsort_dx(g32, src, dst, w32, n_x):
+    """K4's ``dx`` as it was before the sort kernel."""
+    perm = torch.argsort(src, stable=True).to(torch.int32)
+    wp = None if w32 is None else w32[perm].contiguous()
+    return K._run_k4(g32, dst[perm], src[perm], K._rows_of_blocks(n_x), wp)[:n_x]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,e,case", [
+    (512, 5000, "uniform"), (300, 5000, "hub"), (512, 300, "uniform"), (300, 20_000, "out_of_range"),
+    (131_072, 40_000, "uniform"), (128, 128, "uniform"), (131_072, 4096, "hub"),
+])
+def test_k3_backward_on_the_sort_is_the_argsort_composition(dev, dtype, n, e, case):
+    """``unsorted_segment_sum`` on the sort kernel against the composition
+    it replaced (``torch.argsort`` + K4), bit for bit, also for ids below 0
+    and past the rows (they add nothing, and K4 cuts the in-range edges
+    into the same tiles), at the ``train`` CLI's n128xe128 and at one sort
+    tile too; one sort launch and one K4 launch a call; two calls alike."""
+    rng = np.random.default_rng(n + e)
+    ids = torch.as_tensor(_sort_case(case, e, n, rng), device=dev)
+    g = torch.randn((e, 48), device=dev).to(dtype)
+    K.reset_launch_counts()
+    first = K.unsorted_segment_sum(g, ids, n)
+    torch.cuda.synchronize()
+    assert K.sort_by_ids.launches == 1
+    assert K.launch_counts()["pallas_gather_scatter_sum"] == 1
+    assert torch.equal(first, _argsort_unsorted_segment_sum(g, ids, n))
+    assert torch.equal(K.unsorted_segment_sum(g, ids, n), first)
+    assert K.sort_by_ids.launches == 2
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("e,case", [(300, "uniform"), (11_000, "uniform"), (11_000, "out_of_range")])
+def test_k4_dx_on_the_sort_is_the_argsort_composition(dev, weighted, e, case):
+    """K4's ``dx`` with dst and the weights carried through the sort
+    kernel, against the composition it replaced (``torch.argsort``, three
+    gathers, K4), bit for bit; src below 0 and past x's rows add nothing;
+    two runs alike."""
+    n_pad, n_x, f = 512, 300, 48
+    rng = np.random.default_rng(e)
+    d = torch.as_tensor(_sorted_dst(n_pad, e, e), device=dev)
+    src = torch.as_tensor(_sort_case(case, e, n_x, rng), device=dev)
+    g32 = torch.randn((n_pad, f), device=dev)
+    w32 = torch.rand(e, device=dev) + 0.5 if weighted else None
+    K.reset_launch_counts()
+    got = K.gather_scatter_dx(g32, src, d, w32, n_x)
+    torch.cuda.synchronize()
+    assert K.sort_by_ids.launches == 1
+    assert torch.equal(got, _argsort_dx(g32, src, d, w32, n_x))
+    assert torch.equal(got, K.gather_scatter_dx(g32, src, d, w32, n_x))
+
+
 @pytest.mark.parametrize("model,expected", [
     ("graphsage", {"scatter_sum_sorted": 3, "segment_expand_sorted": 3,
                    "gather_rows_banded": 3, "pallas_gather_scatter_sum": 3}),
@@ -499,6 +659,7 @@ def test_train_gradients_on_card_match_cpu(dev, model, expected):
         if where == dev:
             torch.cuda.synchronize()
             assert K.launch_counts() == expected
+            assert K.sort_by_ids.launches == 3  # a sort of edge_src for each K3 backward
         grads[str(where)] = {k: p.grad.float().cpu() for k, p in params.named_parameters()}
     for k, ref in grads["cpu"].items():
         got = grads[str(dev)][k]
