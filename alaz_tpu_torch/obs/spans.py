@@ -1,10 +1,9 @@
-"""Window-lifecycle span tracing (ISSUE 9 tentpole).
+"""Window-lifecycle span tracing: the JAX package's ``obs/spans.py``,
+with the port's span helper beside it.
 
 Answers "where did window W spend its 0.6 s between first row and
-exported score" — the attribution every next perf tentpole (process-mode
-ingest, Pallas fused aggregation, multi-tenant isolation) is gated on.
-Each emitted window carries one span: named per-stage durations through
-the full lifecycle,
+exported score". Each emitted window carries one span: named per-stage
+durations through the full lifecycle,
 
     first-row-seen ──────────────► close begins          = ``scatter``
     per-shard close pop+aggregate                        = ``shard_close``
@@ -15,12 +14,38 @@ the full lifecycle,
     device compute (blocked on)                          = ``score``
     score export ack (annotate + sink)                   = ``export``
 
+The port times the scorer's work through ``SpanTracer.span`` and adds
+stages of its own (``PORT_STAGES``), nested as they run:
+
+    score    ⊃ dispatch (the score fn's call, until it returns; in a
+                stacked group it runs at staging, outside ``score``)
+             ⊃ wait     (the blocking read of the edge logits)
+    record   ⊃ plane    (the sigmoid and the score plane's pass)
+             ⊃ export
+    handoff  ⊃ gauges   (the closing thread's window enqueue and its
+                         src-locality gauges; no window's span)
+    take                (the scorer's wait for its next window)
+    feed, forward, backward, optim   (the train step)
+
+A span times its stage on the host (``perf_counter`` wall seconds into
+``latency.<stage>_s``, a histogram for every stage of both tuples; the
+thread's CPU seconds into the counter ``cpu.<stage>_s``, in
+``SpanTracer.cpu``, registered like the histograms or, without a
+registry, private to the tracer), records its parent stage (the span open around it
+on the same thread) in the window's ``window_span`` event, and, only
+while a ``torch.profiler`` session records in the process, opens the
+profiler range ``alaz.<stage>`` around its body: the range lands in the
+trace on the profiler's clock, on its thread, beside the card's
+activity. The ranges are the profiler's CPU-op kind, not its user
+annotations, so the trace gives them no copy on the device timeline.
+
 Cost discipline (the ≤2 % rows/s bench bound): tracer calls happen per
 **window × stage** (plus one ``first_row`` per chunk×window at the
 persist mouth), never per row; each call is a dict write under one
 short tracer lock; the lock-striped histograms are fed once per window
 at completion, not per observation. ``enabled=False`` short-circuits
-every method at the first branch.
+every method at the first branch; a span then reads the wall clock
+alone (its callers account busy time from it).
 
 The live-span map is bounded (``max_live``, LRU-evicted with a counter):
 a window that never completes — scoring disabled mid-run, a shed window
@@ -56,14 +81,68 @@ STAGES = (
 # ingest, the chaos harness — ``complete_at_emit=True``) can complete
 HOST_STAGES = STAGES[:5]
 
+# the port's own stages (module docstring): sub-stages of the scorer's
+# window work, and windowless work. Apart from STAGES, so the e2e
+# gate's span-completeness contract stays the lifecycle's.
+PORT_STAGES = (
+    "take",
+    "dispatch",
+    "wait",
+    "record",
+    "plane",
+    "handoff",
+    "gauges",
+    "feed",
+    "forward",
+    "backward",
+    "optim",
+)
+
+# the stages ``SpanTracer.span`` times: each counts its thread CPU
+# seconds into ``cpu.<stage>_s``
+SPAN_STAGES = ("stage", "score", "export") + PORT_STAGES
+
+# this thread's open spans' stages, innermost last
+_LOCAL = threading.local()
+
+# (torch.autograd.profiler, torch._C._profiler), imported at the first
+# span: the process pool's workers import obs/ without torch
+_TORCH_PROFILER = []
+
+
+def _profiler_modules() -> list:
+    if not _TORCH_PROFILER:
+        import torch._C._profiler
+        import torch.autograd.profiler
+
+        _TORCH_PROFILER[:] = [torch.autograd.profiler, torch._C._profiler]
+    return _TORCH_PROFILER
+
+
+class _Seconds:
+    """A private tracer's CPU-seconds counter (the registry counter's
+    ``inc`` and ``value``), without the runtime package and its torch."""
+
+    __slots__ = ("value", "_lock")
+
+    def __init__(self) -> None:
+        self.value = 0.0  # guarded-by: self._lock
+        self._lock = threading.Lock()
+
+    def inc(self, n: float) -> None:
+        with self._lock:
+            self.value += n
+
 
 class WindowSpan:
-    __slots__ = ("window_start_ms", "t_first", "stages")
+    __slots__ = ("window_start_ms", "t_first", "stages", "parents")
 
     def __init__(self, window_start_ms: int, t_first: float):
         self.window_start_ms = int(window_start_ms)
         self.t_first = t_first  # monotonic first-row-seen
         self.stages: Dict[str, float] = {}
+        # stage -> the stage whose span was open around it
+        self.parents: Dict[str, str] = {}
 
     def missing(self, expected=STAGES) -> tuple:
         return tuple(s for s in expected if s not in self.stages)
@@ -101,13 +180,15 @@ class SpanTracer:
         self.evicted = 0  # guarded-by: self._lock
         if metrics is not None:
             self.hists = {
-                s: metrics.histogram(f"latency.{s}_s") for s in STAGES
+                s: metrics.histogram(f"latency.{s}_s") for s in STAGES + PORT_STAGES
             }
+            self.cpu = {s: metrics.counter(f"cpu.{s}_s") for s in SPAN_STAGES}
             self._c_windows = metrics.counter("trace.windows")
             self._c_evicted = metrics.counter("trace.evicted")
             metrics.gauge("trace.live", lambda: self.live_count)
         else:
-            self.hists = {s: Histogram(f"latency.{s}_s") for s in STAGES}
+            self.hists = {s: Histogram(f"latency.{s}_s") for s in STAGES + PORT_STAGES}
+            self.cpu = {s: _Seconds() for s in SPAN_STAGES}
             self._c_windows = None
             self._c_evicted = None
 
@@ -161,10 +242,13 @@ class SpanTracer:
             if "scatter" not in span.stages:
                 span.stages["scatter"] = now - span.t_first
 
-    def observe(self, window_start_ms: int, stage: str, dur_s: float) -> None:
-        """Record a stage duration on the window's span. Re-observation
-        keeps the max — per-shard parallel closes all report, and the
-        span carries the critical-path one."""
+    def observe(
+        self, window_start_ms: int, stage: str, dur_s: float, parent: Optional[str] = None
+    ) -> None:
+        """Record a stage duration on the window's span, and the stage it
+        ran inside (``parent``) if any. Re-observation keeps the max —
+        per-shard parallel closes all report, and the span carries the
+        critical-path one."""
         if not self.enabled:
             return
         w = int(window_start_ms)
@@ -172,6 +256,19 @@ class SpanTracer:
             span = self._get_or_create_locked(w, time.perf_counter())
             if stage not in span.stages or dur_s > span.stages[stage]:
                 span.stages[stage] = dur_s
+            if parent is not None:
+                span.parents[stage] = parent
+
+    def span(self, stage: str, window=None) -> "_Span":
+        """``with tracer.span(stage, window) as sp:`` times its body as
+        ``stage`` (module docstring); ``sp.wall_s`` holds the wall
+        seconds after the body. ``window``: the window id whose span
+        takes the stage, or a stacked group's ``[(tracer, window id),
+        ...]``; with None the stage belongs to no window's lifecycle and
+        its histogram takes the time at once — so a hand-off that runs
+        after its window was scored never reopens that window's span. A
+        body that raises is not observed."""
+        return _Span(self, stage, window)
 
     def emit(self, window_start_ms: int) -> None:
         """The window's GraphBatch left the host plane. Completes the
@@ -204,6 +301,7 @@ class SpanTracer:
                 "window_span",
                 window_start_ms=w,
                 stages={s: round(d * 1e3, 4) for s, d in span.stages.items()},
+                parents=dict(span.parents),
             )
         return span
 
@@ -229,10 +327,11 @@ class SpanTracer:
             return len(self._live)
 
     def stage_snapshot(self) -> dict:
-        """{stage: {count, p50_ms, p95_ms, p99_ms}} — the /stats and
-        bench ``stage_latency`` payload."""
+        """{stage: {count, p50_ms, p95_ms, p99_ms}} over the lifecycle's
+        and the port's stages — the /stats and bench ``stage_latency``
+        payload."""
         out = {}
-        for s in STAGES:
+        for s in STAGES + PORT_STAGES:
             h = self.hists[s]
             snap = h.snapshot()
             out[s] = {
@@ -242,3 +341,65 @@ class SpanTracer:
                 "p99_ms": round(snap["p99"] * 1e3, 4),
             }
         return out
+
+
+class _Span:
+    """One timed stage (``SpanTracer.span``)."""
+
+    __slots__ = ("tracer", "stage", "window", "parent", "t0", "c0", "wall_s", "dropped", "_range")
+
+    def __init__(self, tracer: SpanTracer, stage: str, window):
+        self.tracer = tracer
+        self.stage = stage
+        self.window = window
+        self.parent: Optional[str] = None
+        self.wall_s = 0.0
+        self.dropped = False
+        self._range = None
+
+    def drop(self) -> None:
+        """Observe nothing for this span (a poll that took no window). A
+        profiler range already open stays in the trace."""
+        self.dropped = True
+
+    def __enter__(self) -> "_Span":
+        if self.tracer.enabled:
+            stack = getattr(_LOCAL, "stack", None)
+            if stack is None:
+                stack = _LOCAL.stack = []
+            if stack:
+                self.parent = stack[-1]
+            stack.append(self.stage)
+            autograd_profiler, profiler = _profiler_modules()
+            if autograd_profiler._is_profiler_enabled:
+                self._range = profiler._RecordFunctionFast("alaz." + self.stage)
+                self._range.__enter__()
+            # the CPU clock is read inside the wall clock's interval: on
+            # a fine thread clock a span's CPU seconds never exceed its
+            # wall seconds (a clock that ticks reads whole ticks)
+            self.t0 = time.perf_counter()
+            self.c0 = time.thread_time()
+        else:
+            self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        tr = self.tracer
+        if not tr.enabled:
+            self.wall_s = time.perf_counter() - self.t0
+            return
+        cpu_s = time.thread_time() - self.c0
+        self.wall_s = time.perf_counter() - self.t0
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+        _LOCAL.stack.pop()
+        if exc_type is not None or self.dropped:
+            return
+        tr.cpu[self.stage].inc(cpu_s)
+        if self.window is None:
+            tr.hists[self.stage].observe(self.wall_s)
+        elif isinstance(self.window, list):
+            for owner, w in self.window:
+                owner.observe(w, self.stage, self.wall_s, self.parent)
+        else:
+            tr.observe(self.window, self.stage, self.wall_s, self.parent)

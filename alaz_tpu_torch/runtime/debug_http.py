@@ -413,10 +413,13 @@ class DebugServer:
 
 def _torch_profiler():
     """A ``torch.profiler`` session over the host and, where a card is
-    visible, its CUDA activity."""
+    visible, its CUDA activity. It records every thread's operations and
+    span ranges (``alaz.<stage>``, ``obs/spans.py``), not only those of
+    the HTTP handler thread that starts it."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    return torch.profiler.profile(activities=acts)
+    every_thread = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    return torch.profiler.profile(activities=acts, experimental_config=every_thread)

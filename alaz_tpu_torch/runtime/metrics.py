@@ -479,7 +479,9 @@ _DEVICE_MEM_KEYS = (
 def device_gauges(metrics: Metrics, device=None) -> None:
     """Accelerator gauges under the JAX package's names (the NVML
     collector analog): per-device memory gauges from the CUDA caching
-    allocator, an HBM-utilization percentage and device identity info,
+    allocator, ``device<i>.hbm_utilization_pct`` — the allocator's
+    allocated bytes over the card's capacity, an occupancy and not a
+    bandwidth, under the JAX package's name — and device identity info,
     for every visible card when ``device`` is a CUDA device, and — where
     NVML answers — the environment legs of ``runtime/gpu_env.py``
     (kernel duty cycle and device memory under the TPU runtime's gauge

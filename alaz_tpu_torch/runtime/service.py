@@ -173,6 +173,37 @@ class StagingArenas:
         return arena
 
 
+class ScoreClock:
+    """The score step's device time on a card: a pair of CUDA timing
+    events recorded on the current stream just before the score fn's
+    first launch and just after its last, read once the logits' read has
+    synchronised past them (no sync of its own). Pairs come from a free
+    list, so it holds no more pairs than are ever in flight at once (two
+    with the group path's double buffering). Scorer thread only."""
+
+    def __init__(self) -> None:
+        self.free: list = []
+
+    def start(self) -> tuple:
+        if self.free:
+            pair = self.free.pop()
+        else:
+            pair = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        pair[0].record()
+        return pair
+
+    @staticmethod
+    def stop(pair: tuple) -> None:
+        pair[1].record()
+
+    def read(self, pair: tuple) -> float:
+        """Seconds from ``pair``'s start to its end; the pair returns to
+        the free list."""
+        dur_s = pair[0].elapsed_time(pair[1]) * 1e-3
+        self.free.append(pair)
+        return dur_s
+
+
 def _to_numpy(x) -> np.ndarray:
     """A score output read back to the host (waits for the device: an
     explicit transfer under ``sanitize.no_implicit_transfers``); a host
@@ -534,6 +565,9 @@ class Service:
         self._stage_arenas = StagingArenas(pin=pin)
         self._serial_arenas = StagingArenas(pin=pin)
         self._batch_windows = max(1, int(self.config.score_batch_windows))
+        # the device time each score step reports to the device plane
+        # (latency.score_s.<bucket>); the host's time is the score span
+        self._score_clock = ScoreClock() if self.torch_device.type == "cuda" else None
         if (
             self._score_fn is not None
             and self._batch_windows > 1
@@ -715,42 +749,47 @@ class Service:
 
     def _enqueue_window(self, batch: GraphBatch, tenant: int = 0) -> None:
         part = self.partitions[tenant]
-        # tenant attribution rides the batch through the SHARED window
-        # queue: record_window routes sketches/drift/top-K to
-        # the right per-tenant plane, and the close→score latency stamp
-        # is what the per-tenant p99 gate measures
-        batch.tenant = tenant
-        batch.closed_monotonic = time_module.monotonic()
-        part.windows_closed += 1
-        if self.tenants > 1:
-            # first-window gauge registration: per-tenant ledger series
-            # appear when the tenant first produces, never before
-            part.register_tenant_gauges(self.metrics)
-        if not self.window_queue.put_nowait_drop([batch]):
-            # ledger in ROWS, not batches (GraphBatch.aggregated_rows —
-            # the one conservation row measure). The shed attributes to
-            # the EMITTING tenant's ledger — per-tenant conservation is
-            # the isolation gate's invariant.
-            part.ledger.add("shed", batch.aggregated_rows(), reason="windows")
-            # a shed window never reaches the scorer: drop its live span
-            # (an eviction tick, not a leak) instead of leaving it open
-            part.tracer.discard(batch.window_start_ms)
-        self.metrics.counter("windows.closed").inc()
-        # the banded src-gather's cost models on live traffic: lets an
-        # operator read off whether SRC_GATHER=banded would pay here.
-        # The decisive gauge is the straggler fraction (<0.125, the
-        # kernel's fix-up budget → banded pays; →1.0 → keep the XLA
-        # gather); the [min,max] band width rides along for context.
-        # Multi-tenant: K closing threads would race these shared
-        # set-style gauges into whichever-tenant-closed-last noise, so
-        # only the PRIMARY tenant's windows feed them (the series keeps
-        # one deterministic meaning; per-tenant locality is a follow-on)
-        if tenant == 0:
-            band_w, strag = src_locality_gauges(
-                batch.edge_src[: batch.n_edges], n_nodes=batch.n_nodes
-            )
-            self.metrics.gauge("windows.src_band_windows").set(band_w)
-            self.metrics.gauge("windows.src_straggler_fraction").set(strag)
+        # the hand-off, on the closing thread: windowless, since it runs
+        # on after the put, when the scorer may already have completed
+        # this window's span
+        with part.tracer.span("handoff"):
+            # tenant attribution rides the batch through the SHARED window
+            # queue: record_window routes sketches/drift/top-K to
+            # the right per-tenant plane, and the close→score latency stamp
+            # is what the per-tenant p99 gate measures
+            batch.tenant = tenant
+            batch.closed_monotonic = time_module.monotonic()
+            part.windows_closed += 1
+            if self.tenants > 1:
+                # first-window gauge registration: per-tenant ledger series
+                # appear when the tenant first produces, never before
+                part.register_tenant_gauges(self.metrics)
+            if not self.window_queue.put_nowait_drop([batch]):
+                # ledger in ROWS, not batches (GraphBatch.aggregated_rows —
+                # the one conservation row measure). The shed attributes to
+                # the EMITTING tenant's ledger — per-tenant conservation is
+                # the isolation gate's invariant.
+                part.ledger.add("shed", batch.aggregated_rows(), reason="windows")
+                # a shed window never reaches the scorer: drop its live span
+                # (an eviction tick, not a leak) instead of leaving it open
+                part.tracer.discard(batch.window_start_ms)
+            self.metrics.counter("windows.closed").inc()
+            # the banded src-gather's cost models on live traffic: lets an
+            # operator read off whether SRC_GATHER=banded would pay here.
+            # The decisive gauge is the straggler fraction (<0.125, the
+            # kernel's fix-up budget → banded pays; →1.0 → keep the XLA
+            # gather); the [min,max] band width rides along for context.
+            # Multi-tenant: K closing threads would race these shared
+            # set-style gauges into whichever-tenant-closed-last noise, so
+            # only the PRIMARY tenant's windows feed them (the series keeps
+            # one deterministic meaning; per-tenant locality is a follow-on)
+            if tenant == 0:
+                with part.tracer.span("gauges"):
+                    band_w, strag = src_locality_gauges(
+                        batch.edge_src[: batch.n_edges], n_nodes=batch.n_nodes
+                    )
+                    self.metrics.gauge("windows.src_band_windows").set(band_w)
+                    self.metrics.gauge("windows.src_straggler_fraction").set(strag)
 
     def _consume(self, queue: BatchQueue, fn: Callable[[Any], None]) -> None:
         """Worker loop: every successfully-gotten batch is matched with a
@@ -866,7 +905,8 @@ class Service:
         # (arena stack + copy + dispatch) and only finished (its result
         # read) after the next work is staged, so host stacking of group
         # k+1 overlaps device compute of group k.
-        # staged: ("one", batch, device arrays) | ("group", batches, out)
+        # staged: ("one", batch, device arrays) | ("group", batches, out,
+        # its device clock or None)
         staged: Optional[tuple] = None
 
         def owed(entry: Optional[tuple]) -> int:
@@ -888,68 +928,72 @@ class Service:
             isolation gate's p99."""
             t = int(getattr(batch, "tenant", 0))
             part = self.partitions[t]
-            self.scored_batches += 1
-            self.scored_edges += batch.n_edges
-            self.metrics.counter("scored.edges").inc(batch.n_edges)
-            plane = self._scores_for(t)
-            scores = None
-            if plane.enabled or self.score_sink is not None:
-                n = batch.n_edges
-                scores = (1.0 / (1.0 + np.exp(-logits[:n]))).astype(np.float32)
-            # score plane: sketch + drift compare + top-K
-            # attribution, one vectorized pass per window — BOTH scorer
-            # paths (serial and stacked group) land here, so the plane's
-            # accounting is identical under serial and sharded ingest
-            if scores is not None and plane.enabled:
-                plane.observe_window(batch, scores)
-            closed = getattr(batch, "closed_monotonic", None)
-            if closed is not None:
-                # close→score latency, attributed per tenant (sparse —
-                # the series appears with the tenant's first window)
-                lat = time_module.monotonic() - closed
-                self.metrics.histogram(
-                    f"latency.close_to_score_s.t{t}", sparse=True
-                ).observe(lat)
-                if self.score_observer is not None:
-                    # harness hook (replay/tenants.py): exact per-window
-                    # latencies — histogram rungs are factor-2 banded,
-                    # too coarse for a ±10% isolation gate
-                    try:
-                        self.score_observer(batch, t, lat)
-                    except Exception as exc:  # alazlint: disable=ALZ043 -- telemetry hook, not a row holder: the window's rows continue to the export leg below; a raising observer costs its own sample only
-                        log.warning(f"score observer failed: {exc!r}")
-            te0 = time_module.perf_counter()
-            if self.score_sink is not None:
-                annotated = self._annotate(batch, scores, part.interner)
-                if len(annotated):
-                    self.score_sink(annotated)
-            part.tracer.observe(
-                batch.window_start_ms, "export",
-                time_module.perf_counter() - te0,
-            )
-            part.tracer.complete(batch.window_start_ms)
+            w = batch.window_start_ms
+            with part.tracer.span("record", w):
+                self.scored_batches += 1
+                self.scored_edges += batch.n_edges
+                self.metrics.counter("scored.edges").inc(batch.n_edges)
+                plane = self._scores_for(t)
+                scores = None
+                with part.tracer.span("plane", w):
+                    if plane.enabled or self.score_sink is not None:
+                        n = batch.n_edges
+                        scores = (1.0 / (1.0 + np.exp(-logits[:n]))).astype(np.float32)
+                    # score plane: sketch + drift compare + top-K
+                    # attribution, one vectorized pass per window — BOTH scorer
+                    # paths (serial and stacked group) land here, so the plane's
+                    # accounting is identical under serial and sharded ingest
+                    if scores is not None and plane.enabled:
+                        plane.observe_window(batch, scores)
+                closed = getattr(batch, "closed_monotonic", None)
+                if closed is not None:
+                    # close→score latency, attributed per tenant (sparse —
+                    # the series appears with the tenant's first window)
+                    lat = time_module.monotonic() - closed
+                    self.metrics.histogram(
+                        f"latency.close_to_score_s.t{t}", sparse=True
+                    ).observe(lat)
+                    if self.score_observer is not None:
+                        # harness hook (replay/tenants.py): exact per-window
+                        # latencies — histogram rungs are factor-2 banded,
+                        # too coarse for a ±10% isolation gate
+                        try:
+                            self.score_observer(batch, t, lat)
+                        except Exception as exc:  # alazlint: disable=ALZ043 -- telemetry hook, not a row holder: the window's rows continue to the export leg below; a raising observer costs its own sample only
+                            log.warning(f"score observer failed: {exc!r}")
+                with part.tracer.span("export", w):
+                    if self.score_sink is not None:
+                        annotated = self._annotate(batch, scores, part.interner)
+                        if len(annotated):
+                            self.score_sink(annotated)
+            part.tracer.complete(w)
 
         def score_one(batch, graph) -> None:
             """Score one window; always settles its task_done."""
             try:
-                t0 = time_module.perf_counter()
-                self.score_dispatches += 1
-                with self._bucket_ctx(batch):
-                    out = self._score_fn(self.model_state, graph)
-                    logits = _to_numpy(out["edge_logits"])
-                if "attn_clamp_saturation" in out:
-                    # GAT logit-clamp saturation (models/gat.py layer_fn):
-                    # nonzero means trained logits are hitting ±30 and the
-                    # softmax is flattening — the fixed-clamp assumption
-                    # needs revisiting if this climbs
-                    self.metrics.gauge("model.attn_clamp_saturation").set(
-                        float(_to_numpy(out["attn_clamp_saturation"]))
-                    )
-                dt = time_module.perf_counter() - t0
-                self._scorer_busy_s += dt
-                self._tracer_for(batch).observe(batch.window_start_ms, "score", dt)
-                # device plane: the same duration, attributed per bucket
-                self.device.observe_score(batch, dt)
+                tracer, w = self._tracer_for(batch), batch.window_start_ms
+                with tracer.span("score", w) as score:
+                    self.score_dispatches += 1
+                    with self._bucket_ctx(batch):
+                        with tracer.span("dispatch", w):
+                            clock = self._score_clock.start() if self._score_clock is not None else None
+                            out = self._score_fn(self.model_state, graph)
+                            if clock is not None:
+                                self._score_clock.stop(clock)
+                        with tracer.span("wait", w):
+                            logits = _to_numpy(out["edge_logits"])
+                    if "attn_clamp_saturation" in out:
+                        # GAT logit-clamp saturation (models/gat.py layer_fn):
+                        # nonzero means trained logits are hitting ±30 and the
+                        # softmax is flattening — the fixed-clamp assumption
+                        # needs revisiting if this climbs
+                        self.metrics.gauge("model.attn_clamp_saturation").set(
+                            float(_to_numpy(out["attn_clamp_saturation"]))
+                        )
+                self._scorer_busy_s += score.wall_s
+                # device plane, per bucket: the step's device time on a
+                # card, the host's score time on the CPU
+                self.device.observe_score(batch, self._score_clock.read(clock) if clock is not None else score.wall_s)
                 record_window(batch, logits)
             finally:
                 self.window_queue.task_done()
@@ -974,53 +1018,56 @@ class Service:
             task_done itself (the accounting guarantee the serial path's
             try/except gives a single window)."""
             try:
-                t0 = time_module.perf_counter()
                 self.score_dispatches += 1
                 # cross-tenant batching: the group was packed
                 # purely by bucket shape — windows from different fleets
                 # share one arena fill and one dispatch
                 if len({int(getattr(b, "tenant", 0)) for b in batches}) > 1:
                     self.multi_tenant_groups += 1
-                # layout selection: the scorer's ModelConfig
-                # decides the pytree — under "blocked" every window ships
-                # its (already close-time-computed) extents, and the
-                # arenas pick the column up generically from cols[0]
-                cols = [
-                    b.device_arrays(self.config.model.edge_layout)
-                    for b in batches
-                ]
-                target = 1
-                while target < len(cols):
-                    target *= 2
-                # never exceed the operator's cap: batch_windows may be
-                # sized to device memory at the largest bucket, and a
-                # non-power-of-two cap must not round up past itself
-                target = min(target, self._batch_windows)
-                if len(cols) < target:
-                    cols = cols + [cols[-1]] * (target - len(cols))
-                arena = self._stage_arenas.fill(
-                    (batches[0].n_pad, batches[0].e_pad), cols
-                )
-                t_arena = time_module.perf_counter()
-                if self._host_score:
-                    # host scorer: the arena IS the stacked input — no
-                    # copy to a device exists to issue
-                    stacked = {k: v.numpy() for k, v in arena.items()}
-                else:
-                    # on the CPU ``.to`` returns the arena itself: the group
-                    # fn's outputs are new tensors, so the arena's next fill
-                    # cannot clobber a result before it is read
-                    stacked = {k: v.to(self.torch_device, non_blocking=True) for k, v in arena.items()}
-                t_xfer = time_module.perf_counter()
-                stage_s = t_xfer - t0
-                with self._bucket_ctx(batches[0]):
+                # the whole group staged in one arena fill + transfer and
+                # dispatched once: each member's span carries the shared
+                # times (critical-path semantics — observe keeps the max)
+                members = [(self._tracer_for(b), b.window_start_ms) for b in batches]
+                with self.tracer.span("stage", members) as stage:
+                    # layout selection: the scorer's ModelConfig
+                    # decides the pytree — under "blocked" every window ships
+                    # its (already close-time-computed) extents, and the
+                    # arenas pick the column up generically from cols[0]
+                    cols = [
+                        b.device_arrays(self.config.model.edge_layout)
+                        for b in batches
+                    ]
+                    target = 1
+                    while target < len(cols):
+                        target *= 2
+                    # never exceed the operator's cap: batch_windows may be
+                    # sized to device memory at the largest bucket, and a
+                    # non-power-of-two cap must not round up past itself
+                    target = min(target, self._batch_windows)
+                    if len(cols) < target:
+                        cols = cols + [cols[-1]] * (target - len(cols))
+                    arena = self._stage_arenas.fill(
+                        (batches[0].n_pad, batches[0].e_pad), cols
+                    )
+                    arena_s = time_module.perf_counter() - stage.t0
+                    if self._host_score:
+                        # host scorer: the arena IS the stacked input — no
+                        # copy to a device exists to issue
+                        stacked = {k: v.numpy() for k, v in arena.items()}
+                    else:
+                        # on the CPU ``.to`` returns the arena itself: the group
+                        # fn's outputs are new tensors, so the arena's next fill
+                        # cannot clobber a result before it is read
+                        stacked = {k: v.to(self.torch_device, non_blocking=True) for k, v in arena.items()}
+                # the group's dispatch runs here, at staging, ahead of its
+                # score stage (finish_group's read): no parent stage
+                with self._bucket_ctx(batches[0]), self.tracer.span("dispatch", members) as dispatch:
+                    clock = self._score_clock.start() if self._score_clock is not None else None
                     out = self._score_many_fn(self.model_state, stacked)
-                self._scorer_busy_s += time_module.perf_counter() - t0
-                # the whole group staged in one arena fill + transfer:
-                # each member's span carries the shared staging time
-                # (critical-path semantics — observe keeps the max)
+                    if clock is not None:
+                        self._score_clock.stop(clock)
+                self._scorer_busy_s += stage.wall_s + dispatch.wall_s
                 for b in batches:
-                    self._tracer_for(b).observe(b.window_start_ms, "stage", stage_s)
                     # occupancy per REAL window — the group's
                     # power-of-two padding re-ships the last member's
                     # columns, but that's a dispatch artifact (its
@@ -1030,32 +1077,33 @@ class Service:
                 # the whole stacked group shipped
                 self.device.observe_transfer(
                     sum(v.nbytes for v in arena.values()),
-                    t_arena - t0,
-                    t_xfer - t_arena,
+                    arena_s,
+                    stage.wall_s - arena_s,
                 )
-                return ("group", batches, out)
+                return ("group", batches, out, clock)
             except BaseException:
                 for _ in batches:
                     self.window_queue.task_done()
                 raise
 
-        def finish_group(batches, out) -> None:
+        def finish_group(batches, out, clock) -> None:
             """Block on a staged group's logits, record every window;
             always settles the group's task_dones."""
             try:
-                t0 = time_module.perf_counter()
-                logits = _to_numpy(out["edge_logits"])
-                if "attn_clamp_saturation" in out:
-                    self.metrics.gauge("model.attn_clamp_saturation").set(
-                        float(np.max(_to_numpy(out["attn_clamp_saturation"])))
-                    )
-                dt = time_module.perf_counter() - t0
-                self._scorer_busy_s += dt
+                # shared times for the stacked group — each window's
+                # `score` stage carries the group's read
+                members = [(self._tracer_for(b), b.window_start_ms) for b in batches]
+                with self.tracer.span("score", members) as score:
+                    with self.tracer.span("wait", members):
+                        logits = _to_numpy(out["edge_logits"])
+                    if "attn_clamp_saturation" in out:
+                        self.metrics.gauge("model.attn_clamp_saturation").set(
+                            float(np.max(_to_numpy(out["attn_clamp_saturation"])))
+                        )
+                self._scorer_busy_s += score.wall_s
+                device_s = self._score_clock.read(clock) if clock is not None else score.wall_s
                 for i, batch in enumerate(batches):
-                    # shared device time for the stacked group — each
-                    # window's `score` stage carries the group dispatch
-                    self._tracer_for(batch).observe(batch.window_start_ms, "score", dt)
-                    self.device.observe_score(batch, dt)
+                    self.device.observe_score(batch, device_s)
                     record_window(batch, logits[i])
             finally:
                 for _ in batches:
@@ -1067,7 +1115,7 @@ class Service:
             if entry[0] == "one":
                 score_one(entry[1], entry[2])
             else:
-                finish_group(entry[1], entry[2])
+                finish_group(entry[1], entry[2], entry[3])
 
         # carry: a popped window whose bucket broke a micro-batch group;
         # it owes a task_done until scored or the worker dies
@@ -1077,7 +1125,12 @@ class Service:
                 if carry is not None:
                     batch, carry = carry, None
                 else:
-                    item = self.window_queue.get(timeout=0.05)
+                    # the wait for work: a poll that takes no window
+                    # observes nothing
+                    with self.tracer.span("take") as take:
+                        item = self.window_queue.get(timeout=0.05)
+                        if item is None:
+                            take.drop()
                     if item is None:
                         if staged is not None:  # idle: don't hold work
                             prev, staged = staged, None
@@ -1124,25 +1177,22 @@ class Service:
                         finish(prev)
                     continue
                 try:
-                    t0 = time_module.perf_counter()
-                    # host prep (lazy node_deg fill etc.) vs transfer
-                    # dispatch: the serial path's arena analog is the
-                    # device_arrays() call — same decomposition the
-                    # group path gets from its arena fill
-                    cols = batch.device_arrays(self.config.model.edge_layout)
-                    t_arena = time_module.perf_counter()
-                    # a host scorer takes the numpy columns: no copy
-                    with self._bucket_ctx(batch):
-                        graph = cols if self._host_score else self._to_device(batch, cols)
-                    t_xfer = time_module.perf_counter()
-                    dt = t_xfer - t0
-                    self._scorer_busy_s += dt
-                    self._tracer_for(batch).observe(batch.window_start_ms, "stage", dt)
+                    with self._tracer_for(batch).span("stage", batch.window_start_ms) as stage:
+                        # host prep (lazy node_deg fill etc.) vs transfer
+                        # dispatch: the serial path's arena analog is the
+                        # device_arrays() call — same decomposition the
+                        # group path gets from its arena fill
+                        cols = batch.device_arrays(self.config.model.edge_layout)
+                        arena_s = time_module.perf_counter() - stage.t0
+                        # a host scorer takes the numpy columns: no copy
+                        with self._bucket_ctx(batch):
+                            graph = cols if self._host_score else self._to_device(batch, cols)
+                    self._scorer_busy_s += stage.wall_s
                     self.device.observe_staged(batch)
                     self.device.observe_transfer(
                         sum(v.nbytes for v in cols.values()),
-                        t_arena - t0,
-                        t_xfer - t_arena,
+                        arena_s,
+                        stage.wall_s - arena_s,
                     )
                 except Exception:
                     # the popped window still owes its accounting

@@ -27,6 +27,7 @@ from alaz_tpu_torch.device import resolve_device
 from alaz_tpu_torch.graph.snapshot import GraphBatch
 from alaz_tpu_torch.models import tgn
 from alaz_tpu_torch.models.registry import get_model
+from alaz_tpu_torch.obs.spans import SpanTracer
 from alaz_tpu_torch.sanitize.retrace import dispatch
 from alaz_tpu_torch.train.objective import edge_bce_loss
 
@@ -110,25 +111,37 @@ def make_loss_fn(cfg: ModelConfig, pos_weight: float = 10.0) -> Callable:
     return loss_fn
 
 
-def make_train_step(cfg: ModelConfig, pos_weight: float = 10.0, device=None) -> Callable:
+def make_train_step(
+    cfg: ModelConfig, pos_weight: float = 10.0, device=None, tracer: SpanTracer | None = None
+) -> Callable:
     """``train_step(params, optimizer, graph, edge_label) -> loss``: one
     forward, backward and optimizer step on ``device`` (default ``cuda``).
     ``graph`` may hold numpy arrays or tensors. The gradients stay in the
     params' ``.grad`` until the next step; the loss comes back as a
-    detached tensor on the device, so the step does not wait for it."""
+    detached tensor on the device, so the step does not wait for it.
+    The step's spans (``obs/spans.py``): ``feed`` (the graph's and the
+    label's copies to the device), ``forward``, ``backward``, ``optim``,
+    on ``tracer``, or on a private one; ``train_step.tracer`` is the one
+    in use."""
     loss_fn = make_loss_fn(cfg, pos_weight)
     dev = resolve_device(device)
+    tracer = tracer if tracer is not None else SpanTracer()
 
     def train_step(params, optimizer, graph: dict, edge_label) -> torch.Tensor:
         with dispatch("train_step", graph):
-            g = _train_graph(graph, dev)
-            label = _autograd_tensor(torch.as_tensor(edge_label, device=dev))
+            with tracer.span("feed"):
+                g = _train_graph(graph, dev)
+                label = _autograd_tensor(torch.as_tensor(edge_label, device=dev))
             optimizer.zero_grad(set_to_none=True)
-            loss = loss_fn(params, g, label)
-            backward(params, loss)
-            optimizer.step()
+            with tracer.span("forward"):
+                loss = loss_fn(params, g, label)
+            with tracer.span("backward"):
+                backward(params, loss)
+            with tracer.span("optim"):
+                optimizer.step()
         return loss.detach()
 
+    train_step.tracer = tracer
     return train_step
 
 

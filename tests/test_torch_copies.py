@@ -72,7 +72,14 @@ COPIES = {
     "config.py": {"ported": {"ModelConfig"}},
     "obs/histogram.py": {},
     "obs/recorder.py": {},
-    "obs/spans.py": {},
+    # the span helper (SpanTracer.span) and the port's stages beside the
+    # lifecycle's; the window span records each stage's parent
+    "obs/spans.py": {
+        "ported": {"<module docstring>", "WindowSpan", "SpanTracer.__init__", "SpanTracer.observe",
+                   "SpanTracer.complete", "SpanTracer.stage_snapshot"},
+        "added": {"PORT_STAGES", "SPAN_STAGES", "_LOCAL", "_TORCH_PROFILER", "_profiler_modules",
+                  "_Seconds", "SpanTracer.span", "_Span"},
+    },
     "obs/scores.py": {},
     "obs/device.py": {},
     "runtime/tenancy.py": {},

@@ -349,12 +349,18 @@ def test_tgn_refuses_grouping_and_renumbering():
 
 def test_metric_names_equal_the_jax_services():
     """Every metric the JAX service registers, the port registers too,
-    under the same name, and no other, ``compile.events`` included; the
+    under the same name, and no other but its span stages' series,
+    ``compile.events`` included; the
     per-entry-point counters ``compile.<fn>`` name what each package
     compiles (XLA programs there, native builds here) and are left out.
+    The port's own span stages (``obs/spans.py PORT_STAGES``) add their
+    ``latency.<stage>_s`` histograms, and the span helper's stages their
+    ``cpu.<stage>_s`` counters.
     (The environment gauges, ``runtime/tpu_env.py`` and
     ``runtime/gpu_env.py``, register only where a TPU runtime or NVML
     answers for the service's device: not on the CPU.)"""
+    from alaz_tpu_torch.obs.spans import PORT_STAGES, SPAN_STAGES
+
     jcfg, pcfg = _cfgs(batch_windows=2)
     jparams = _params(jcfg)
     jsvc, _, _ = _serve("jax", jcfg, jax.tree_util.tree_map(jax.numpy.asarray, jparams))
@@ -371,7 +377,11 @@ def test_metric_names_equal_the_jax_services():
 
     jnames, pnames = names(jsvc), names(psvc)
     assert "compile.events" in jnames and "compile.events" in pnames
-    assert pnames == jnames
+    port_only = {f"cpu.{s}_s" for s in SPAN_STAGES} | {
+        f"latency.{s}_s.{q}" for s in PORT_STAGES for q in ("count", "p50", "p95", "p99")
+    }
+    assert not jnames & port_only
+    assert pnames == jnames | port_only
 
 
 def test_no_card_no_service():
