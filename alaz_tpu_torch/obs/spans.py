@@ -25,7 +25,9 @@ stages of its own (``PORT_STAGES``), nested as they run:
     handoff  ⊃ gauges   (the closing thread's window enqueue and its
                          src-locality gauges; no window's span)
     take                (the scorer's wait for its next window)
-    feed, forward, backward, optim   (the train step)
+    feed     ⊃ fill     (the train step's host arrays into a
+                         page-locked set, on a card)
+    forward, backward, optim          (the rest of the train step)
 
 A span times its stage on the host (``perf_counter`` wall seconds into
 ``latency.<stage>_s``, a histogram for every stage of both tuples; the
@@ -93,6 +95,7 @@ PORT_STAGES = (
     "handoff",
     "gauges",
     "feed",
+    "fill",
     "forward",
     "backward",
     "optim",

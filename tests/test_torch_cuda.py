@@ -1081,6 +1081,124 @@ def test_no_implicit_transfers_on_card(dev):
     assert torch.isfinite(logits).all()
 
 
+# -- the train step's feed through page-locked sets ---------------------------
+
+_FEED_CFG = dict(model="gat", src_gather="banded")
+
+
+def _train_feeds(n: int = 3) -> list:
+    """``n`` labelled community windows of 300,000 edges as numpy, the
+    arrays and the label the step is handed."""
+    from alaz_tpu_torch.replay.synth import example_batch
+
+    out = []
+    for s in range(n):
+        b = example_batch(n_pods=30_000, n_svcs=3_000, n_edges=300_000, seed=s, structure="community",
+                          layout="clustered")
+        label = np.zeros(b.e_pad, np.float32)
+        label[: b.n_edges] = b.edge_feats[: b.n_edges, 0] > 1.5
+        out.append((b.device_arrays(), label))
+    return out
+
+
+def _steps(feeds, feed_as=None, after=None) -> dict:
+    """Three AdamW steps of the GAT train step from the same params:
+    ``feed_as(i, graph, label)`` gives what step ``i`` is handed (default:
+    the numpy arrays), ``after(i)`` runs as soon as the step returns.
+    Each step's loss and gradients, the final params, the feed's counts."""
+    from alaz_tpu_torch.config import ModelConfig
+    from alaz_tpu_torch.models.registry import init_params
+    from alaz_tpu_torch.train.trainstep import _adamw, make_train_step
+
+    cfg = ModelConfig(**_FEED_CFG)
+    params = init_params(cfg, key=0, device="cuda")
+    opt = _adamw(params, 3e-3)
+    step = make_train_step(cfg, 10.0, "cuda")
+    losses, grads = [], []
+    for i, (graph, label) in enumerate(feeds):
+        graph, label = feed_as(i, graph, label) if feed_as else (graph, label)
+        losses.append(step(params, opt, graph, label))
+        if after is not None:
+            after(i)
+        grads.append({k: p.grad.clone() for k, p in params.named_parameters()})
+    torch.cuda.synchronize()
+    return {"losses": losses, "grads": grads, "params": {k: p.detach().clone() for k, p in params.named_parameters()},
+            "counts": dict(step.feed_counts)}
+
+
+def _on_card(i, graph, label):
+    return {k: torch.as_tensor(v, device="cuda") for k, v in graph.items()}, torch.as_tensor(label, device="cuda")
+
+
+def _assert_same_steps(got: dict, ref: dict) -> None:
+    assert all(torch.equal(a, b) for a, b in zip(got["losses"], ref["losses"]))
+    for g, r in zip(got["grads"], ref["grads"]):
+        assert all(torch.equal(g[k], r[k]) for k in r)
+    assert all(torch.equal(got["params"][k], ref["params"][k]) for k in ref["params"])
+
+
+def test_train_step_on_numpy_runs_under_no_implicit_transfers(dev):
+    """A GAT train step handed numpy runs under the guard: its host arrays
+    reach the card through the page-locked sets with no synchronizing
+    copy. The pageable copy the feed made before raises there."""
+    from alaz_tpu_torch.config import ModelConfig
+    from alaz_tpu_torch.models.registry import init_params
+    from alaz_tpu_torch.sanitize.retrace import no_implicit_transfers
+    from alaz_tpu_torch.train.trainstep import _adamw, make_train_step
+
+    feeds = _train_feeds(3)
+    cfg = ModelConfig(**_FEED_CFG)
+    params = init_params(cfg, key=0, device="cuda")
+    opt = _adamw(params, 3e-3)
+    step = make_train_step(cfg, 10.0, "cuda")
+    for graph, label in feeds[:2]:  # builds the kernels and both sets
+        step(params, opt, graph, label)
+    torch.cuda.synchronize()
+    with no_implicit_transfers():
+        losses = [step(params, opt, graph, label) for graph, label in feeds]
+        with pytest.raises(RuntimeError):
+            torch.as_tensor(feeds[0][1], device="cuda")
+    torch.cuda.synchronize()
+    assert step.feed_counts == {"staged": 5 * 10, "passed": 0}
+    assert all(bool(torch.isfinite(x)) for x in losses)
+    assert step.tracer.hists["fill"].snapshot()["count"] == 5
+
+
+def test_train_step_fed_numpy_equals_fed_device_tensors(dev):
+    """Three AdamW steps fed numpy (staged through the page-locked sets)
+    equal, bit for bit, three steps fed the same windows as device
+    tensors (passed through): losses, gradients and params."""
+    feeds = _train_feeds(3)
+    got = _steps(feeds)
+    ref = _steps(feeds, feed_as=_on_card)
+    assert got["counts"] == {"staged": 30, "passed": 0} and ref["counts"] == {"staged": 0, "passed": 30}
+    _assert_same_steps(got, ref)
+
+
+def test_train_step_result_holds_when_the_caller_rewrites_its_arrays(dev):
+    """As the benchmark's load does: one set of arrays, refilled in place
+    with each step's window and overwritten with noise the moment the step
+    returns, while its copies may still be in flight. Every step trains
+    on the window it was handed."""
+    feeds = _train_feeds(3)
+    ref = _steps(feeds, feed_as=_on_card)
+    arrays = {k: v.copy() for k, v in feeds[0][0].items()}
+    label = feeds[0][1].copy()
+    rng = np.random.default_rng(0)
+
+    def refill(i, graph, lbl):
+        for k, v in graph.items():
+            np.copyto(arrays[k], v)
+        np.copyto(label, lbl)
+        return arrays, label
+
+    def scribble(i):
+        for v in list(arrays.values()) + [label]:
+            v[...] = rng.integers(0, 2, v.shape).astype(v.dtype)
+
+    _assert_same_steps(_steps(feeds, feed_as=refill, after=scribble), ref)
+
+
 def _parallel_on_card() -> dict:
     """One NCCL rank (world size 1, every mesh axis of size 1): the
     dp-sharded GAT score step with the banded src gather against

@@ -19,6 +19,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from alaz_tpu_torch.config import ModelConfig, RuntimeConfig
+from alaz_tpu_torch.convert import graph_to_torch
 from alaz_tpu_torch.models.registry import init_params
 from alaz_tpu_torch.obs import spans
 from alaz_tpu_torch.obs.histogram import Histogram
@@ -267,7 +268,7 @@ def test_train_step_spans_and_its_loss_bit_for_bit():
         """The step as it was written before it had spans."""
 
         def step(params, optimizer, graph, edge_label):
-            g = trainstep._train_graph(graph, torch.device("cpu"))
+            g = {k: trainstep._autograd_tensor(v) for k, v in graph_to_torch(graph, "cpu").items()}
             label = trainstep._autograd_tensor(torch.as_tensor(edge_label, device="cpu"))
             optimizer.zero_grad(set_to_none=True)
             loss = loss_fn(params, g, label)
