@@ -16,6 +16,7 @@ unrolled sequence with its gradient.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -79,22 +80,30 @@ def apply(params: TGN, graph: dict, cfg: ModelConfig) -> dict:
     return out
 
 
-def step(params: TGN, graph: dict, memory: torch.Tensor, cfg: ModelConfig) -> tuple:
-    """One window: encode the snapshot conditioned on the memory, emit its
-    scores, and return ``(outputs, memory)`` with the memory updated on
-    active nodes (zero-extended first if the node bucket grew)."""
+def encode(params: TGN, graph: dict, memory: torch.Tensor, cfg: ModelConfig) -> tuple:
+    """The window's outputs from its snapshot conditioned on the memory:
+    ``(outputs, memory)``, the memory zero-extended first if the node
+    bucket outgrew it."""
     dtype = compute_dtype(cfg)
     n_pad = graph["node_feats"].shape[0]
     if memory.shape[0] < n_pad:
         memory = F.pad(memory, (0, 0, 0, n_pad - memory.shape[0]))
     m_prev = memory[:n_pad]
-
     out = graphsage.apply(
         params.encoder, graph, cfg, h_bias=dense(params.mem_in, m_prev.to(dtype))
     )
-    h = out["node_h"].float()
+    return out, memory
 
-    # GRU memory update for active nodes
+
+def update(params: TGN, graph: dict, memory: torch.Tensor, node_h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The GRU memory update: ``m_t`` on the window's active nodes from
+    ``m_{t-1}`` (``memory``, at least the node bucket's rows, as ``encode``
+    returns it) and the window's node states ``node_h``; every other row
+    as it was."""
+    dtype = compute_dtype(cfg)
+    n_pad = node_h.shape[0]
+    m_prev = memory[:n_pad]
+    h = node_h.float()
     hz = torch.cat([m_prev.to(dtype), h.to(dtype)], dim=-1)
     r = torch.sigmoid(dense(params.gru_r, hz)).float()
     z = torch.sigmoid(dense(params.gru_z, hz)).float()
@@ -105,17 +114,29 @@ def step(params: TGN, graph: dict, memory: torch.Tensor, cfg: ModelConfig) -> tu
     m_next = torch.where(graph["node_mask"][:, None], m_new, m_prev)
     if memory.shape[0] > n_pad:
         m_next = torch.cat([m_next, memory[n_pad:]])
-    return out, m_next
+    return m_next
+
+
+def step(params: TGN, graph: dict, memory: torch.Tensor, cfg: ModelConfig) -> tuple:
+    """One window: encode the snapshot conditioned on the memory, emit its
+    scores, and return ``(outputs, memory)`` with the memory updated on
+    active nodes (zero-extended first if the node bucket grew)."""
+    out, memory = encode(params, graph, memory, cfg)
+    return out, update(params, graph, memory, out["node_h"], cfg)
 
 
 @functools.lru_cache(maxsize=None)
 def make_step_fn(cfg: ModelConfig):
     """``step`` closed over a ModelConfig, one per config (ModelConfig is
     a frozen dataclass, so equal configs share it): the streaming
-    callers' entry point."""
+    callers' entry point. ``around_update`` is entered around the memory
+    update alone (the Service's span and device clock)."""
 
-    def tgn_step(params, graph, memory):
+    def tgn_step(params, graph, memory, around_update=contextlib.nullcontext):
         with dispatch("tgn_step", graph):
-            return step(params, graph, memory, cfg)
+            out, memory = encode(params, graph, memory, cfg)
+            with around_update():
+                memory = update(params, graph, memory, out["node_h"], cfg)
+            return out, memory
 
     return tgn_step

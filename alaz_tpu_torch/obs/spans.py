@@ -28,6 +28,13 @@ stages of its own (``PORT_STAGES``), nested as they run:
     feed     ⊃ fill     (the train step's host arrays into a
                          page-locked set, on a card)
     forward, backward, optim          (the rest of the train step)
+    memory                            (TGN's memory update, inside
+                                       dispatch; no window's span)
+
+``memory`` is a model's own stage (``MODEL_STAGES``): its series
+register only in a tracer that ``add_stage`` gives it, the Service's
+under ``model="tgn"``, so every other Service's names stay the JAX
+service's.
 
 A span times its stage on the host (``perf_counter`` wall seconds into
 ``latency.<stage>_s``, a histogram for every stage of both tuples; the
@@ -105,6 +112,10 @@ PORT_STAGES = (
 # seconds into ``cpu.<stage>_s``
 SPAN_STAGES = ("stage", "score", "export") + PORT_STAGES
 
+# stages only some models run (module docstring): ``SpanTracer.add_stage``
+# registers one where its model runs
+MODEL_STAGES = ("memory",)
+
 # this thread's open spans' stages, innermost last
 _LOCAL = threading.local()
 
@@ -181,6 +192,7 @@ class SpanTracer:
         self._live: "OrderedDict[int, WindowSpan]" = OrderedDict()  # guarded-by: self._lock
         self.completed = 0  # guarded-by: self._lock
         self.evicted = 0  # guarded-by: self._lock
+        self._metrics = metrics
         if metrics is not None:
             self.hists = {
                 s: metrics.histogram(f"latency.{s}_s") for s in STAGES + PORT_STAGES
@@ -194,6 +206,17 @@ class SpanTracer:
             self.cpu = {s: _Seconds() for s in SPAN_STAGES}
             self._c_windows = None
             self._c_evicted = None
+
+    def add_stage(self, stage: str) -> None:
+        """Register one of ``MODEL_STAGES``: its ``latency.<stage>_s``
+        histogram and ``cpu.<stage>_s`` counter, as ``__init__`` does the
+        others'."""
+        if self._metrics is not None:
+            self.hists[stage] = self._metrics.histogram(f"latency.{stage}_s")
+            self.cpu[stage] = self._metrics.counter(f"cpu.{stage}_s")
+        else:
+            self.hists[stage] = Histogram(f"latency.{stage}_s")
+            self.cpu[stage] = _Seconds()
 
     # -- lifecycle marks -----------------------------------------------------
 
@@ -334,7 +357,7 @@ class SpanTracer:
         and the port's stages — the /stats and bench ``stage_latency``
         payload."""
         out = {}
-        for s in STAGES + PORT_STAGES:
+        for s in STAGES + PORT_STAGES + tuple(m for m in MODEL_STAGES if m in self.hists):
             h = self.hists[s]
             snap = h.snapshot()
             out[s] = {

@@ -541,14 +541,7 @@ class Service:
                 self._tgn_memory = tgn.init_memory(
                     self.config.model, self.config.model.tgn_max_nodes, device=self.torch_device
                 )
-                step = tgn.make_step_fn(self.config.model)
-
-                def tgn_score(params, graph):
-                    with torch.inference_mode():
-                        out, self._tgn_memory = step(params, graph, self._tgn_memory)
-                    return out
-
-                self._score_fn = tgn_score
+                self._score_fn = self._tgn_score_fn(tgn.make_step_fn(self.config.model))
             else:
                 from alaz_tpu_torch.train.trainstep import make_score_fn
 
@@ -1212,6 +1205,61 @@ class Service:
                 self.window_queue.task_done()
             if carry is not None:
                 self.window_queue.task_done()
+
+    def _tgn_score_fn(self, step) -> Callable:
+        """The score fn that threads ``_tgn_memory`` through ``step``
+        (``tgn.make_step_fn``) window by window, and the memory update's
+        own series, registered here alone (tgn only): the span stage
+        ``memory``; on a card ``latency.memory_device_s``, a CUDA event
+        pair around the update's launches (``ScoreClock``); the gauge
+        ``tgn.memory_rows``; the counters ``tgn.memory_grows`` (each
+        zero-extension reallocates the memory: size ``tgn_max_nodes``
+        to the largest bucket) and ``tgn.memory_rows_updated`` (live
+        rows, summed over windows, counted on the device and copied back
+        without a wait). On a card a window's device time and rows are
+        read when the next window is scored: the scorer read the
+        window's logits in between, which synchronised past both, so
+        reading them needs no sync of its own."""
+        self.tracer.add_stage("memory")
+        self.metrics.gauge("tgn.memory_rows", lambda: self._tgn_memory.shape[0])
+        grows = self.metrics.counter("tgn.memory_grows")
+        rows_updated = self.metrics.counter("tgn.memory_rows_updated")
+        on_card = self.torch_device.type == "cuda"
+        clock = ScoreClock() if on_card else None
+        device_s = self.metrics.histogram("latency.memory_device_s") if on_card else None
+        rows = torch.zeros((), dtype=torch.int64, pin_memory=on_card)  # the last window's, copied back
+        pending: list = []  # the last window's event pair (None on the CPU), until it is read
+
+        @contextlib.contextmanager
+        def around_update(mask):
+            with self.tracer.span("memory"):
+                pair = clock.start() if on_card else None
+                yield
+                if on_card:
+                    clock.stop(pair)
+                rows.copy_(mask.sum(), non_blocking=True)
+                pending.append(pair)
+
+        def settle() -> None:
+            while pending:
+                pair = pending.pop()
+                rows_updated.inc(int(rows))
+                if pair is not None:
+                    device_s.observe(clock.read(pair))
+
+        def tgn_score(params, graph):
+            settle()  # the previous window's: its logits were read
+            if self._tgn_memory.shape[0] < graph["node_feats"].shape[0]:
+                grows.inc()
+            with torch.inference_mode():
+                out, self._tgn_memory = step(
+                    params, graph, self._tgn_memory, lambda: around_update(graph["node_mask"])
+                )
+            if not on_card:
+                settle()  # on the host the count is already there
+            return out
+
+        return tgn_score
 
     def _tracer_for(self, batch: GraphBatch):
         """The span tracer owning this batch's window: its emitting

@@ -73,12 +73,13 @@ COPIES = {
     "obs/histogram.py": {},
     "obs/recorder.py": {},
     # the span helper (SpanTracer.span) and the port's stages beside the
-    # lifecycle's; the window span records each stage's parent
+    # lifecycle's (a model's own, MODEL_STAGES, registered by add_stage);
+    # the window span records each stage's parent
     "obs/spans.py": {
         "ported": {"<module docstring>", "WindowSpan", "SpanTracer.__init__", "SpanTracer.observe",
                    "SpanTracer.complete", "SpanTracer.stage_snapshot"},
-        "added": {"PORT_STAGES", "SPAN_STAGES", "_LOCAL", "_TORCH_PROFILER", "_profiler_modules",
-                  "_Seconds", "SpanTracer.span", "_Span"},
+        "added": {"PORT_STAGES", "SPAN_STAGES", "MODEL_STAGES", "_LOCAL", "_TORCH_PROFILER", "_profiler_modules",
+                  "_Seconds", "SpanTracer.span", "SpanTracer.add_stage", "_Span"},
     },
     "obs/scores.py": {},
     "obs/device.py": {},
