@@ -17,11 +17,42 @@
 //     layout's host extents), then its lanes stride the feature columns
 //     with vector loads (16 B for f32, 8 B for bf16) and walk the run in
 //     edge order, UNROLL rows in flight per lane to cover memory latency.
-//     No atomics and a fixed order: results are deterministic, and the COO
-//     and blocked layouts give bit-identical rows. Rows without edges get
-//     zeros; every output row is written exactly once.
-//     Known limit: a row's run is walked by one warp, so a hub row with a
-//     very long run is latency bound on one SM.
+//     No atomics on the sums and a fixed order: results are deterministic,
+//     and the COO and blocked layouts give bit-identical rows. Rows without
+//     edges get zeros; every output row is written exactly once.
+//     Long runs. One warp walks a run kUnroll rows a round, one memory
+//     latency each (~0.8 us: a 9,152-edge run took ~950 us, the rest of a
+//     131,072-row grid ~25 us; PERF.md). So a row whose run is longer than
+//     kSplitRun = 256 edges -- about what one warp walks while the rest of
+//     that grid runs -- is split: its row warp leaves it, and chunk warps,
+//     one for each kChunk = 128 consecutive edges of the edge axis, sum it
+//     in the same launch. They come first in the grid, so their walks (16
+//     rounds) overlap the row warps' (placed last, the 9,152-edge run's K1
+//     took 60 us instead of 37). A chunk warp probes four edges (its first
+//     and last, the first of the chunk before and the last of the chunk
+//     after): a run of more than 2 * kChunk edges covers a whole chunk, so
+//     these show every split row that meets the chunk. The warp finds such
+//     a row's run by the row warps' search, sums its part in f32 in edge
+//     order into a scratch slot (two a chunk: the row holding its first
+//     edge, and one starting inside it), then arrives at a counter kept by
+//     the row's first chunk; the last to arrive adds the row's partials in
+//     chunk order, rounds once and writes the row. A row of at most
+//     kSplitRun edges is summed as before, bit for bit. The partition
+//     depends on edge positions alone, so COO and blocked rows still agree
+//     bit for bit. The counters carry the launch's epoch (rising from launch
+//     to launch on a stream; an atomicMax lifts an older count to zero), so
+//     no launch clears them; they are the only atomics. Each launch adds its
+//     split rows and their edges to two device totals (alaz_k1_split_counts).
+//     kChunk: 64 made the 1M-edge windows' K1 ~10 us slower (their runs of
+//     ~105 edges cover 64-edge chunks, whose warps then search); 256 made
+//     the 9,152-edge run's K1 47 us (its chunk walks, 32 rounds, outlast the
+//     row grid). A warp-wide 33-way search in place of the binary one saved
+//     ~1 us a launch and was left out.
+//     What bounds it now (PERF.md): at the TGN stream's shape (~37 us
+//     against a 13.8 us bound), the row grid (~27 us with no long run: the
+//     131,072 rows' searches and writes), then the split row's combine, one
+//     warp adding a partial a chunk in turn (~0.08 us each, 72 there). The
+//     chunk warps cost a window with no long run ~2 us.
 //
 // K2  alaz_segment_expand_sorted
 //     Replaces alaz_tpu/ops/pallas_segment.py segment_expand_sorted
@@ -168,6 +199,11 @@ namespace {
 constexpr int kBlockRows = 128;  // dst rows per extent block (EDGE_BLOCK_ROWS)
 constexpr int kWarps = 8;        // warps per CTA: one dst row each
 constexpr int kUnroll = 8;       // message rows in flight per lane
+constexpr int kChunk = 128;      // K1: edges of a split row one chunk warp sums
+constexpr int kSplitRun = 256;   // K1: a row's run longer than this is split
+// A split row then covers at least one whole chunk (a run of 2 * kChunk + 1
+// edges always does), which is what the chunk warps' probes look for.
+static_assert(kSplitRun >= 2 * kChunk, "a split row must cover a whole chunk");
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -213,38 +249,180 @@ __device__ __forceinline__ void row_run(const int* __restrict__ dst,
   t = lower_bound(dst, s, hi, row + 1);
 }
 
+// K1's chunks for n_edges edges: a chunk warp each
+__host__ __device__ constexpr int k1_chunks(int n_edges) {
+  return n_edges / kChunk + (n_edges % kChunk != 0);
+}
+
+// K1's split rows and their edges, summed over every launch on the device
+// (read by alaz_k1_split_counts)
+__device__ unsigned long long g_k1_split[2];
+
+// acc += msgs[e][c .. c + VEC) for e in [s, t), in edge order, kUnroll
+// rows in flight per lane; ``col`` is msgs + c
+template <typename InT, int VEC>
+__device__ __forceinline__ void sum_run(const InT* __restrict__ col, int f, int s, int t,
+                                        float (&acc)[VEC]) {
+  int e = s;
+  for (; e + kUnroll <= t; e += kUnroll) {
+    Vec<InT, VEC> m[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      m[u] = *reinterpret_cast<const Vec<InT, VEC>*>(col + (size_t)(e + u) * f);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) acc[k] += to_f32(m[u].v[k]);
+  }
+  for (; e < t; ++e) {
+    const Vec<InT, VEC> m = *reinterpret_cast<const Vec<InT, VEC>*>(col + (size_t)e * f);
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) acc[k] += to_f32(m.v[k]);
+  }
+}
+
+// VEC f32 partial sums, read from L2: another SM wrote them
+template <int VEC>
+__device__ __forceinline__ Vec<float, VEC> load_partial(const float* p);
+template <>
+__device__ __forceinline__ Vec<float, 4> load_partial<4>(const float* p) {
+  const float4 v = __ldcg(reinterpret_cast<const float4*>(p));
+  Vec<float, 4> r;
+  r.v[0] = v.x;
+  r.v[1] = v.y;
+  r.v[2] = v.z;
+  r.v[3] = v.w;
+  return r;
+}
+template <>
+__device__ __forceinline__ Vec<float, 1> load_partial<1>(const float* p) {
+  Vec<float, 1> r;
+  r.v[0] = __ldcg(p);
+  return r;
+}
+
+// One arrival at a split row's counter, tagged with the launch's epoch:
+// returns the arrivals of this launch before this one. Epochs rise from
+// launch to launch on a stream, so the max lifts a count left by an
+// earlier launch to (epoch, 0) and no launch has to clear the counters;
+// two atomics, no retry loop, whatever the number of arrivals.
+__device__ __forceinline__ unsigned arrive(unsigned long long* ctr, unsigned epoch) {
+  const unsigned long long tag = (unsigned long long)epoch << 32;
+  atomicMax(ctr, tag);
+  return (unsigned)atomicAdd(ctr, 1ull);
+}
+
+// Chunk c's share of split row r (if r is one, and meets the chunk): its
+// edges in [a, b) summed in f32 in edge order into partials[c][slot] (slot
+// 0 for the row holding edge a, 1 for a row starting past it), then one
+// arrival at the counter of the row's first chunk. The last of the row's
+// chunks to arrive adds their partials in chunk order, rounds once and
+// writes the row.
+template <typename InT, typename OutT, int VEC>
+__device__ void split_part(const InT* __restrict__ msgs, const int* __restrict__ dst,
+                           const int* __restrict__ row_start, OutT* __restrict__ out,
+                           float* __restrict__ partials, unsigned long long* __restrict__ counters,
+                           unsigned epoch, int n_rows, int f, int n_edges, int c, int a, int b,
+                           int r, int lane) {
+  if (r < 0 || r >= n_rows) return;
+  int s, t;
+  row_run(dst, row_start, r, n_edges, s, t);  // as its row warp finds it
+  const int from = max(s, a), to = min(t, b);
+  if (t - s <= kSplitRun || from >= to) return;
+  const int c0 = s / kChunk, c1 = (t - 1) / kChunk;
+  const int first_slot = s != c0 * kChunk;  // the row's first chunk holds it in slot 1
+  float* part = partials + ((size_t)c * 2 + (c == c0 ? first_slot : 0)) * f;
+  for (int col = lane * VEC; col < f; col += 32 * VEC) {
+    float acc[VEC];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) acc[k] = 0.0f;
+    sum_run<InT, VEC>(msgs + col, f, from, to, acc);
+    Vec<float, VEC> o;
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) o.v[k] = acc[k];
+    *reinterpret_cast<Vec<float, VEC>*>(part + col) = o;
+  }
+  __threadfence();  // this lane's partials before the arrival
+  __syncwarp();
+  unsigned before = 0;
+  if (lane == 0) before = arrive(counters + c0, epoch);
+  before = __shfl_sync(0xffffffffu, before, 0);
+  if (before + 1u != (unsigned)(c1 - c0 + 1)) return;
+  __threadfence();  // every chunk's partials are in; read them from L2
+  OutT* orow = out + (size_t)r * f;
+  for (int col = lane * VEC; col < f; col += 32 * VEC) {
+    float acc[VEC];
+    Vec<float, VEC> p = load_partial<VEC>(partials + ((size_t)c0 * 2 + first_slot) * f + col);
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) acc[k] = p.v[k];
+    int k0 = c0 + 1;
+    for (; k0 + kUnroll <= c1 + 1; k0 += kUnroll) {
+      Vec<float, VEC> q[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        q[u] = load_partial<VEC>(partials + (size_t)(k0 + u) * 2 * f + col);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) acc[k] += q[u].v[k];
+    }
+    for (; k0 <= c1; ++k0) {
+      p = load_partial<VEC>(partials + (size_t)k0 * 2 * f + col);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) acc[k] += p.v[k];
+    }
+    Vec<OutT, VEC> o;
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) o.v[k] = from_f32<OutT>(acc[k]);
+    *reinterpret_cast<Vec<OutT, VEC>*>(orow + col) = o;
+  }
+  if (lane == 0) {
+    atomicAdd(&g_k1_split[0], 1ull);
+    atomicAdd(&g_k1_split[1], (unsigned long long)(t - s));
+  }
+}
+
+// The first chunk_ctas CTAs hold the chunk warps, one per kChunk edges,
+// ahead of the row warps so that a split row's walk overlaps theirs.
 template <typename InT, typename OutT, int VEC>
 __global__ void __launch_bounds__(kWarps * 32)
 scatter_sum_sorted_kernel(const InT* __restrict__ msgs, const int* __restrict__ dst,
                           const int* __restrict__ row_start, OutT* __restrict__ out,
-                          int n_rows, int f, int n_edges) {
+                          float* __restrict__ partials, unsigned long long* __restrict__ counters,
+                          unsigned epoch, int n_rows, int f, int n_edges, int chunk_ctas) {
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if ((int)blockIdx.x < chunk_ctas) {
+    const int c = blockIdx.x * kWarps + (threadIdx.x >> 5);
+    if (c >= k1_chunks(n_edges)) return;
+    const int a = c * kChunk;
+    const int b = a + min(kChunk, n_edges - a);
+    // A split row (longer than 2 * kChunk edges) that holds edge a covers
+    // the chunk (edge b - 1 is the row's) or ends in it (then it covers
+    // the chunk before, and edge a - kChunk is the row's); one that starts
+    // past edge a covers the next chunk (the row's last edge there too).
+    const int first = __ldg(dst + a);
+    const int last = __ldg(dst + b - 1);
+    const int back = c > 0 ? __ldg(dst + a - kChunk) : first;
+    const int next_last = __ldg(dst + a + min(2 * kChunk, n_edges - a) - 1);
+    if (last == first || (c > 0 && back == first))
+      split_part<InT, OutT, VEC>(msgs, dst, row_start, out, partials, counters, epoch, n_rows, f,
+                                 n_edges, c, a, b, first, lane);
+    if (last != first && next_last == last)
+      split_part<InT, OutT, VEC>(msgs, dst, row_start, out, partials, counters, epoch, n_rows, f,
+                                 n_edges, c, a, b, last, lane);
+    return;
+  }
+  const int row = (blockIdx.x - chunk_ctas) * kWarps + (threadIdx.x >> 5);
   if (row >= n_rows) return;
   int s, t;
   row_run(dst, row_start, row, n_edges, s, t);
+  if (t - s > kSplitRun) return;  // the chunk warps sum and write it
   OutT* orow = out + (size_t)row * f;
   for (int c = lane * VEC; c < f; c += 32 * VEC) {
     float acc[VEC];
 #pragma unroll
     for (int k = 0; k < VEC; ++k) acc[k] = 0.0f;
-    const InT* col = msgs + c;
-    int e = s;
-    for (; e + kUnroll <= t; e += kUnroll) {
-      Vec<InT, VEC> m[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        m[u] = *reinterpret_cast<const Vec<InT, VEC>*>(col + (size_t)(e + u) * f);
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-#pragma unroll
-        for (int k = 0; k < VEC; ++k) acc[k] += to_f32(m[u].v[k]);
-    }
-    for (; e < t; ++e) {
-      const Vec<InT, VEC> m = *reinterpret_cast<const Vec<InT, VEC>*>(col + (size_t)e * f);
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) acc[k] += to_f32(m.v[k]);
-    }
+    sum_run<InT, VEC>(msgs + c, f, s, t, acc);
     Vec<OutT, VEC> o;
 #pragma unroll
     for (int k = 0; k < VEC; ++k) o.v[k] = from_f32<OutT>(acc[k]);
@@ -254,15 +432,19 @@ scatter_sum_sorted_kernel(const InT* __restrict__ msgs, const int* __restrict__ 
 
 template <typename InT, typename OutT>
 cudaError_t launch_scatter(const void* msgs, const int* dst, const int* row_start, void* out,
+                           float* partials, unsigned long long* counters, unsigned epoch,
                            int n_rows, int f, int n_edges, int vec, cudaStream_t stream) {
-  const dim3 grid((n_rows + kWarps - 1) / kWarps);
+  const int chunk_ctas = (k1_chunks(n_edges) + kWarps - 1) / kWarps;
+  const dim3 grid(chunk_ctas + (n_rows + kWarps - 1) / kWarps);
   const dim3 block(kWarps * 32);
   const InT* m = static_cast<const InT*>(msgs);
   OutT* o = static_cast<OutT*>(out);
   if (vec == 4) {
-    scatter_sum_sorted_kernel<InT, OutT, 4><<<grid, block, 0, stream>>>(m, dst, row_start, o, n_rows, f, n_edges);
+    scatter_sum_sorted_kernel<InT, OutT, 4><<<grid, block, 0, stream>>>(
+        m, dst, row_start, o, partials, counters, epoch, n_rows, f, n_edges, chunk_ctas);
   } else if (vec == 1) {
-    scatter_sum_sorted_kernel<InT, OutT, 1><<<grid, block, 0, stream>>>(m, dst, row_start, o, n_rows, f, n_edges);
+    scatter_sum_sorted_kernel<InT, OutT, 1><<<grid, block, 0, stream>>>(
+        m, dst, row_start, o, partials, counters, epoch, n_rows, f, n_edges, chunk_ctas);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -1388,22 +1570,43 @@ enum { kF32 = 0, kBF16 = 1 };
 
 // K1. msgs [n_edges, f] (in_dtype), dst [n_edges] int32 dst-sorted,
 // row_start [n_rows/128 + 1] int32, out [n_rows, f] (out_dtype).
+// partials [ceil(n_edges / C), 2, f] f32 scratch and counters
+// [ceil(n_edges / C)] u64, zeroed once and kept for the stream's later
+// launches (C: alaz_scatter_sum_split_lengths); epoch: above every earlier
+// launch's on the counters.
 // vec: 4 when f % 4 == 0 and both buffers are 16-byte aligned, else 1.
 int alaz_scatter_sum_sorted(const void* msgs, const void* dst, const void* row_start, void* out,
-                            int n_rows, int f, int n_edges, int in_dtype, int out_dtype, int vec,
-                            void* stream) {
+                            void* partials, void* counters, unsigned epoch, int n_rows, int f,
+                            int n_edges, int in_dtype, int out_dtype, int vec, void* stream) {
   const int* d = static_cast<const int*>(dst);
   const int* rs = static_cast<const int*>(row_start);
+  float* p = static_cast<float*>(partials);
+  unsigned long long* c = static_cast<unsigned long long*>(counters);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_dtype == kF32 && out_dtype == kF32)
-    return launch_scatter<float, float>(msgs, d, rs, out, n_rows, f, n_edges, vec, s);
+    return launch_scatter<float, float>(msgs, d, rs, out, p, c, epoch, n_rows, f, n_edges, vec, s);
   if (in_dtype == kBF16 && out_dtype == kBF16)
-    return launch_scatter<__nv_bfloat16, __nv_bfloat16>(msgs, d, rs, out, n_rows, f, n_edges, vec, s);
+    return launch_scatter<__nv_bfloat16, __nv_bfloat16>(msgs, d, rs, out, p, c, epoch, n_rows, f,
+                                                         n_edges, vec, s);
   if (in_dtype == kBF16 && out_dtype == kF32)
-    return launch_scatter<__nv_bfloat16, float>(msgs, d, rs, out, n_rows, f, n_edges, vec, s);
+    return launch_scatter<__nv_bfloat16, float>(msgs, d, rs, out, p, c, epoch, n_rows, f, n_edges,
+                                                vec, s);
   if (in_dtype == kF32 && out_dtype == kBF16)
-    return launch_scatter<float, __nv_bfloat16>(msgs, d, rs, out, n_rows, f, n_edges, vec, s);
+    return launch_scatter<float, __nv_bfloat16>(msgs, d, rs, out, p, c, epoch, n_rows, f, n_edges,
+                                                vec, s);
   return cudaErrorInvalidValue;
+}
+
+// K1's split length and chunk length in edges: {kSplitRun, kChunk}.
+void alaz_scatter_sum_split_lengths(int* host) {
+  host[0] = kSplitRun;
+  host[1] = kChunk;
+}
+
+// K1's split rows and their edges since the library was loaded, on the
+// current device: {rows, edges}. Synchronous.
+int alaz_k1_split_counts(void* host) {
+  return cudaMemcpyFromSymbol(host, g_k1_split, sizeof(g_k1_split));
 }
 
 // K2. v [n_rows_v, row_bytes] (any dtype), dst [n_edges] int32,

@@ -35,7 +35,11 @@ _I = ctypes.c_int
 # C signatures of csrc/segment.cu: every pointer and the stream as
 # c_void_p, so no pointer is cut to 32 bits
 _SIGNATURES = {
-    "alaz_scatter_sum_sorted": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "alaz_scatter_sum_sorted": (
+        _I, [_P, _P, _P, _P, _P, _P, ctypes.c_uint, _I, _I, _I, _I, _I, _I, _P]
+    ),
+    "alaz_scatter_sum_split_lengths": (None, [_P]),
+    "alaz_k1_split_counts": (_I, [_P]),
     "alaz_segment_expand_sorted": (_I, [_P, _P, _P, _I, _I, ctypes.c_longlong, _I, _P]),
     "alaz_gather_rows_banded": (_I, [_P, _P, _P, _I, _I, ctypes.c_longlong, _I, _P]),
     "alaz_gather_scatter_sum": (

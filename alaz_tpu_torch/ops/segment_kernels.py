@@ -9,7 +9,10 @@ counts the kernel that runs, whichever pass asked for it: K1's backward
 is a K2 launch, and K2's a K1 launch.
 
 - ``scatter_sum_sorted`` (K1) replaces the TPU kernel
-  ``alaz_tpu/ops/pallas_segment.py scatter_sum_sorted``.
+  ``alaz_tpu/ops/pallas_segment.py scatter_sum_sorted``. Inside its one
+  launch it splits a row whose edge run is longer than ``L`` edges across
+  warps of ``C`` edges each (``k1_split_lengths``); ``k1_split_counts``
+  reads how many rows it split, and their edges.
 - ``segment_expand_sorted`` (K2) replaces the TPU kernel
   ``alaz_tpu/ops/pallas_segment.py segment_expand_sorted``.
 - ``gather_rows_banded`` (K3) replaces the TPU kernel
@@ -46,6 +49,7 @@ the forward: the kernels on the card, the plain versions on the CPU.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -199,10 +203,12 @@ def _scatter_sum_sorted_cuda(msgs, edge_dst, num_nodes, out_dtype, block_starts)
     vec = 4 if f % 4 == 0 and msgs.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0 else 1
     lib = _build.library()
     with torch.cuda.device(dev):
+        stream = _stream(dev)
+        partials, counters, epoch = _k1_scratch(dev, stream.value, e, f)
         rc = lib.alaz_scatter_sum_sorted(
             msgs.data_ptr(), edge_dst.data_ptr(), row_start.data_ptr(), out.data_ptr(),
-            num_nodes, f, e, _DTYPE_CODE[msgs.dtype], _DTYPE_CODE[out_dtype], vec,
-            _stream(dev),
+            partials.data_ptr(), counters.data_ptr(), epoch,
+            num_nodes, f, e, _DTYPE_CODE[msgs.dtype], _DTYPE_CODE[out_dtype], vec, stream,
         )
     _build.check(rc, "scatter_sum_sorted")
     scatter_sum_sorted.launches += 1
@@ -210,6 +216,63 @@ def _scatter_sum_sorted_cuda(msgs, edge_dst, num_nodes, out_dtype, block_starts)
 
 
 scatter_sum_sorted.launches = 0
+
+# K1's arrival counters of split rows, one set a (device, stream): zeroed
+# once, then tagged by each launch with an epoch above every earlier one,
+# so that no launch has to clear them and launches in turn on one stream
+# share them
+_K1_COUNTERS: dict = {}
+_K1_LOCK = threading.Lock()
+
+
+def _k1_scratch(dev, stream: int, e: int, f: int) -> tuple:
+    """``(partials, counters, epoch)`` for a K1 launch over ``e`` edges of
+    ``f`` columns on ``stream``: the chunk warps' f32 partial sums (two
+    slots for each chunk of ``C`` edges, made anew), the stream's counters
+    and the launch's epoch, one more than the last launch's on them. The
+    counters are made anew, zeroed, when the edge count outgrows them or
+    the epochs run out of 32 bits."""
+    n_chunks = -(-e // k1_split_lengths()[1])
+    partials = torch.empty((n_chunks, 2, f), dtype=torch.float32, device=dev)
+    key = (dev.index, stream)
+    with _K1_LOCK:
+        counters, epoch = _K1_COUNTERS.get(key, (None, 0))
+        if counters is None or counters.shape[0] < n_chunks or epoch == 0xFFFFFFFF:
+            counters, epoch = torch.zeros(max(n_chunks, 1), dtype=torch.int64, device=dev), 0
+        epoch += 1
+        _K1_COUNTERS[key] = (counters, epoch)
+    return partials, counters, epoch
+
+
+_K1_LENGTHS = None
+
+
+def k1_split_lengths() -> tuple:
+    """``(L, C)``: K1 splits a row whose edge run is longer than ``L`` edges
+    across chunk warps of ``C`` consecutive edges each."""
+    global _K1_LENGTHS
+    if _K1_LENGTHS is None:
+        out = (ctypes.c_int * 2)()
+        _build.library().alaz_scatter_sum_split_lengths(out)
+        _K1_LENGTHS = (out[0], out[1])
+    return _K1_LENGTHS
+
+
+def k1_split_counts(device: torch.device | str | None = None) -> tuple:
+    """``(rows, edges)``: the rows K1 split across chunk warps on
+    ``device`` (the current CUDA device by default) since the kernels were
+    loaded, counted once a launch, and the edges of those rows. One small
+    copy from the card and a sync; ``(0, 0)`` where no kernel was loaded
+    (on the CPU, the plain version splits nothing)."""
+    if _build._LIB is None:
+        return 0, 0
+    dev = torch.device("cuda", torch.cuda.current_device()) if device is None else torch.device(device)
+    if dev.type != "cuda":
+        return 0, 0
+    out = (ctypes.c_longlong * 2)()
+    with torch.cuda.device(dev):
+        _build.check(_build.library().alaz_k1_split_counts(out), "k1_split_counts")
+    return int(out[0]), int(out[1])
 
 
 # ---------------------------------------------------------------------------

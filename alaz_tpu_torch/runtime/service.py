@@ -59,6 +59,7 @@ from alaz_tpu_torch.obs.device import CompileEventPlane, DeviceTelemetry, bucket
 from alaz_tpu_torch.obs.recorder import FlightRecorder
 from alaz_tpu_torch.obs.scores import ScorePlane
 from alaz_tpu_torch.obs.spans import SpanTracer
+from alaz_tpu_torch.ops.segment_kernels import k1_split_counts
 from alaz_tpu_torch.runtime.metrics import Metrics, device_gauges, host_gauges, ledger_gauges
 from alaz_tpu_torch.runtime.tenancy import TenantPartition, validate_tenants
 from alaz_tpu_torch.utils.ledger import DropLedger
@@ -665,6 +666,12 @@ class Service:
             * self._scorer_busy_s
             / max(time_module.time() - self.metrics.started_at, 1e-9),
         )
+        # K1's rows split across chunk warps on this Service's card, and
+        # their edges, since the kernels were loaded: each read is a small
+        # copy from the card and a sync, so only a scrape reads them (0 on
+        # the CPU, whose plain version splits nothing)
+        self.metrics.gauge("k1.split_rows", lambda: k1_split_counts(self.torch_device)[0])
+        self.metrics.gauge("k1.split_edges", lambda: k1_split_counts(self.torch_device)[1])
         # metrics scrape-and-push leg (backend.go:340-392,1038-1105)
         if export_backend is not None and hasattr(export_backend, "attach_metrics"):
             export_backend.attach_metrics(self.metrics.render_prometheus)

@@ -988,6 +988,7 @@ def _serve_once(cfg, params, sim_cfg=None, backlog=None, device: str = "cuda",
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
+    split0 = K.k1_split_counts(svc.torch_device)
     events = 0
     watched = None
     compile_plane = {}
@@ -1019,6 +1020,7 @@ def _serve_once(cfg, params, sim_cfg=None, backlog=None, device: str = "cuda",
                 and bool(np.isfinite(s).all()) and bool(((s >= 0) & (s <= 1)).all()),
                 f"window {b.window_start_ms}: scores not finite in [0, 1]")
     snap = svc.metrics.snapshot()
+    split = (snap["k1.split_rows"] - split0[0], snap["k1.split_edges"] - split0[1])
     lat = np.array(latency)
     return {
         "svc": svc, "windows": windows, "scores": {sb.window_start_ms: sb.score for sb in sunk}, "watch": watched,
@@ -1047,6 +1049,8 @@ def _serve_once(cfg, params, sim_cfg=None, backlog=None, device: str = "cuda",
                               "pinned": svc._serial_arenas.pin},
             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated() if on_card else None,
             "launches": launches,
+            # K1's rows split across chunk warps in this run, and their edges
+            "k1_split": {"rows": split[0], "edges": split[1]},
             "compile_plane": compile_plane,
         },
     }

@@ -104,6 +104,101 @@ def test_scatter_sum_sorted_misaligned_and_deterministic(dev):
     assert torch.equal(a, K.scatter_sum_sorted(msgs, d, n_pad))
 
 
+def _k1_runs(dst: np.ndarray, n_pad: int, live: int) -> tuple:
+    """Each row's edge run ``[s, t)`` among the first ``live`` edges."""
+    bounds = np.searchsorted(dst[:live], np.arange(n_pad + 1))
+    return bounds[:-1], bounds[1:]
+
+
+def _k1_sequential(msgs: np.ndarray, dst: np.ndarray, n_pad: int, live: int) -> tuple:
+    """K1's f32 rows as its design sums them, on the host: a run of at most
+    ``L`` edges summed in edge order; a longer one cut into the ``C``-edge
+    chunks of the edge axis, each summed in edge order, the chunk sums
+    added in chunk order. Returns (rows, the split rows' runs)."""
+    lim, chunk = K.k1_split_lengths()
+    s, t = _k1_runs(dst, n_pad, live)
+    out = np.zeros((n_pad, msgs.shape[1]), dtype=np.float32)
+    n = t - s
+    short = np.flatnonzero((n > 0) & (n <= lim))
+    for k in range(int(n[short].max(initial=0))):  # the k-th edge of every run that has one
+        rows = short[n[short] > k]
+        out[rows] = out[rows] + msgs[s[rows] + k]
+    split = [(int(a), int(b)) for a, b in zip(s, t) if b - a > lim]
+    for a, b in split:
+        cuts = [a, *range((a // chunk + 1) * chunk, b, chunk)]
+        parts = [np.cumsum(msgs[c:min(b, (c // chunk + 1) * chunk)], axis=0, dtype=np.float32)[-1] for c in cuts]
+        out[dst[a]] = np.cumsum(np.stack(parts), axis=0, dtype=np.float32)[-1]
+    return out, split
+
+
+def _k1_case(case: str, rng) -> tuple:
+    """(dst, live edges, n_pad) of a window K1 splits rows of: ``stream``,
+    the TGN cell's bucket (131,072 rows, 40,000 live edges on the 10,000
+    service slots, 9,152 pad edges on the last row); ``hub``, one row of
+    100,000 edges among short rows, and rows of exactly ``L`` and ``L + 1``
+    edges."""
+    lim, chunk = K.k1_split_lengths()
+    if case == "stream":
+        n_pad, live, e = 131_072, 40_000, 49_152
+        dst = np.concatenate([np.sort(rng.integers(100_000, 110_000, live)), np.full(e - live, n_pad - 1)])
+        return dst.astype(np.int32), live, n_pad
+    n_pad = 4096
+    lens = rng.integers(0, 9, n_pad)
+    lens[[7, 1000, 1001, 2000, 2001]] = [lim, 100_000, lim + 1, 2 * chunk + 1, lim]
+    lens[-1] = 0
+    dst = np.repeat(np.arange(n_pad), lens).astype(np.int32)
+    return dst, dst.shape[0], n_pad
+
+
+@pytest.mark.parametrize("case", ["stream", "hub"])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_k1_splits_long_runs_bit_for_bit(dev, case, out_dtype):
+    """K1 over a window with long runs, bf16 messages, F = 128: every row
+    equals, bit for bit, the host's sums in K1's order (a run of at most
+    ``L`` edges in edge order; a longer one by ``C``-edge chunks of the
+    edge axis, the chunk sums in chunk order), rounded once; within K1's
+    tolerance of the float64 sum; two calls equal; the blocked layout's
+    rows equal the COO layout's (the pad row aside); one launch a call,
+    one kernel launch in the device trace; ``k1_split_counts`` moves by
+    exactly the long rows and their edges, each call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(19)
+    dst, live, n_pad = _k1_case(case, rng)
+    e, f = dst.shape[0], 128
+    msgs = torch.from_numpy(rng.standard_normal((e, f), dtype=np.float32)).to(torch.bfloat16)
+    msgs[live:] = 0
+    host = msgs.float().numpy()
+    want, split = _k1_sequential(host, dst, n_pad, e)
+    d, m = torch.as_tensor(dst, device=dev), msgs.to(dev)
+    starts = torch.as_tensor(np.searchsorted(dst[:live], np.arange(0, n_pad + 1, 128)).astype(np.int32), device=dev)
+    _, blk_split = _k1_sequential(host, dst, n_pad, live)
+    assert split and (case == "hub" or blk_split == [])
+
+    rows0, edges0 = K.k1_split_counts(dev)
+    before = K.scatter_sum_sorted.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = K.scatter_sum_sorted(m, d, n_pad, out_dtype)
+        torch.cuda.synchronize()
+    kernels = [ev for ev in prof.key_averages() if "scatter_sum_sorted_kernel" in ev.key]
+    assert sum(ev.count for ev in kernels) == 1
+    assert K.scatter_sum_sorted.launches == before + 1
+    rows1, edges1 = K.k1_split_counts(dev)
+    assert (rows1 - rows0, edges1 - edges0) == (len(split), sum(b - a for a, b in split))
+
+    assert got.dtype == out_dtype
+    assert torch.equal(got.cpu(), torch.from_numpy(want).to(out_dtype))
+    _assert_k1_close(got.cpu(), _f64_sum(msgs, torch.as_tensor(dst), n_pad).to(out_dtype))
+    assert torch.equal(got, K.scatter_sum_sorted(m, d, n_pad, out_dtype))
+    blk = K.scatter_sum_sorted(m, d, n_pad, out_dtype, starts)
+    assert torch.equal(blk[: n_pad - 1], got[: n_pad - 1])
+    assert float(blk[n_pad - 1].float().abs().max()) == 0.0
+    rows2, edges2 = K.k1_split_counts(dev)
+    assert (rows2 - rows1, edges2 - edges1) == (
+        len(split) + len(blk_split), sum(b - a for a, b in split + blk_split)
+    )
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16, torch.int32, torch.uint8])
 @pytest.mark.parametrize("f", [1, 3, 128, 129])
 def test_segment_expand_sorted_bit_exact(dev, dtype, f):

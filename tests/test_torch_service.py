@@ -355,7 +355,8 @@ def test_metric_names_equal_the_jax_services():
     compiles (XLA programs there, native builds here) and are left out.
     The port's own span stages (``obs/spans.py PORT_STAGES``) add their
     ``latency.<stage>_s`` histograms, and the span helper's stages their
-    ``cpu.<stage>_s`` counters.
+    ``cpu.<stage>_s`` counters; K1's split counters (``k1.split_rows``,
+    ``k1.split_edges``) are the port's own kernel's.
     (The environment gauges, ``runtime/tpu_env.py`` and
     ``runtime/gpu_env.py``, register only where a TPU runtime or NVML
     answers for the service's device: not on the CPU.)"""
@@ -379,9 +380,26 @@ def test_metric_names_equal_the_jax_services():
     assert "compile.events" in jnames and "compile.events" in pnames
     port_only = {f"cpu.{s}_s" for s in SPAN_STAGES} | {
         f"latency.{s}_s.{q}" for s in PORT_STAGES for q in ("count", "p50", "p95", "p99")
-    }
+    } | {"k1.split_rows", "k1.split_edges"}
     assert not jnames & port_only
     assert pnames == jnames | port_only
+
+
+def test_k1_split_counters_read_zero_on_the_cpu():
+    """The Service's snapshot carries K1's split counters, ``k1.split_rows``
+    and ``k1.split_edges``; on the CPU, where K1 is its plain version and
+    splits no row, both read 0 after a scored run, as ``k1_split_counts``
+    does, and the Prometheus text carries them too."""
+    from alaz_tpu_torch.ops.segment_kernels import k1_split_counts
+
+    _, pcfg = _cfgs()
+    svc, records, windows = _serve("port", pcfg, init_params(pcfg.model, key=0, device="cpu"), duration_s=2.0)
+    assert windows and records
+    snap = svc.metrics.snapshot()
+    assert (snap["k1.split_rows"], snap["k1.split_edges"]) == (0, 0)
+    assert k1_split_counts("cpu") == (0, 0)
+    text = svc.metrics.render_prometheus()
+    assert "alaz_tpu_k1_split_rows 0.0" in text and "alaz_tpu_k1_split_edges 0.0" in text
 
 
 def test_no_card_no_service():
