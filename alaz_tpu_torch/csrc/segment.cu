@@ -769,25 +769,6 @@ __device__ __forceinline__ void wait_prerequisites() {
   asm volatile("griddepcontrol.wait;" ::: "memory");
 }
 
-// K4's phase timeline, compiled in only with -DALAZ_K4_TIMELINE (the
-// timeline build of ops/_build.py; chip_smoke.py reads it): per tile CTA
-// the %globaltimer ns at its start, after its ids and runs are in shared
-// memory, after its first column pass's walk, at its end, and its SM.
-#ifdef ALAZ_K4_TIMELINE
-constexpr int kTimelineCtas = 4096;
-__device__ unsigned long long g_k4_timeline[kTimelineCtas * 5];
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-#define K4_STAMP(slot, value)                                                     \
-  if (threadIdx.x == 0 && blockIdx.x < kTimelineCtas)                              \
-    g_k4_timeline[blockIdx.x * 5 + (slot)] = (value)
-#else
-#define K4_STAMP(slot, value)
-#endif
-
 // One CTA per tile of kGsTile live edges (at least one per 8 dst blocks);
 // each also zeroes its share of the empty 128-row dst blocks. The tile
 // finds its runs of equal dst once (a block scan of dst[i] != dst[i-1]).
@@ -809,9 +790,6 @@ gather_scatter_tile_kernel(const T* __restrict__ x, const int* __restrict__ src,
   using W = decltype(to_smem(T{}));
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_warp[kGsThreads / 32];
-#ifdef ALAZ_K4_TIMELINE
-  const unsigned long long start_ns = global_ns();
-#endif
   launch_dependents();  // the carry kernel may take the SMs the tiles leave
   const int tile = blockIdx.x;
   const int t0 = tile * kGsTile;
@@ -870,8 +848,6 @@ gather_scatter_tile_kernel(const T* __restrict__ x, const int* __restrict__ src,
   }
   __syncthreads();
 
-  K4_STAMP(0, start_ns);
-  K4_STAMP(1, global_ns());  // ids, runs and row addresses in shared memory
   const int lanes = 1 << lanes_log2;
   const int g = threadIdx.x >> lanes_log2;
   const int lane = threadIdx.x & (lanes - 1);
@@ -934,7 +910,6 @@ gather_scatter_tile_kernel(const T* __restrict__ x, const int* __restrict__ src,
         zero_rows<T, VEC>(out, last + 1, (last | (kBlockRows - 1)) + 1, n_rows, f, c);
     }
     __syncthreads();
-    if (c0 == 0) K4_STAMP(2, global_ns());  // the walk of every group
     if (s0 < s1 && col) {
       const int first_row = s_dst[s0], last_row = s_dst[s1 - 1];
       const bool single = first_row == last_row;
@@ -985,12 +960,6 @@ gather_scatter_tile_kernel(const T* __restrict__ x, const int* __restrict__ src,
   }
   // last, so that the tiles' HBM writes spread over the time they finish
   zero_empty_blocks<T, VEC>(row_start, out, n_rows / kBlockRows, f, n_edges);
-#ifdef ALAZ_K4_TIMELINE
-  unsigned smid;
-  asm volatile("mov.u32 %0, %%smid;" : "=r"(smid));
-  K4_STAMP(3, global_ns());
-  K4_STAMP(4, smid);
-#endif
 }
 
 // K4's row starts for the COO layout, as a search of the sorted dst would
@@ -1673,13 +1642,6 @@ long long alaz_sort_scratch_words(int n_keys) { return sort_scratch_words(n_keys
 
 // The sort's keys per tile (a CTA each in every pass).
 int alaz_sort_tile_keys(void) { return kSortTile; }
-
-#ifdef ALAZ_K4_TIMELINE
-// Copy K4's timeline of the last launch ([kTimelineCtas, 5] u64) to host.
-int alaz_k4_timeline(void* host) {
-  return cudaMemcpyFromSymbol(host, g_k4_timeline, sizeof(g_k4_timeline));
-}
-#endif
 
 const char* alaz_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

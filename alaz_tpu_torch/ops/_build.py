@@ -27,8 +27,6 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
-# K4's phase timeline (csrc/segment.cu ALAZ_K4_TIMELINE), for measurement only
-TIMELINE_FLAGS = ("-DALAZ_K4_TIMELINE",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -69,18 +67,17 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build(name: str = "segment", extra_flags: tuple = ()) -> Built:
+def build(name: str = "segment") -> Built:
     """Compile ``csrc/<name>.cu`` unless this exact source and flag set
     was built already. Either way one build event ``name`` reaches the
     open compile watchers (``sanitize/retrace.py``), with its seconds."""
     from alaz_tpu_torch.sanitize.retrace import build_event
 
     src = CSRC / f"{name}.cu"
-    flags = (*NVCC_FLAGS, *extra_flags)
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"libalaz_{name}-{digest}.so"
     with build_event(name, f"nvcc {src.name} -> {out.name}"):
-        return _nvcc(src, flags, out)
+        return _nvcc(src, NVCC_FLAGS, out)
 
 
 def _nvcc(src: Path, flags: tuple, out: Path) -> Built:
@@ -104,33 +101,18 @@ _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
 
 
-def _load(path: Path) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(path))
-    for fn, (restype, argtypes) in _SIGNATURES.items():
-        getattr(lib, fn).restype = restype
-        getattr(lib, fn).argtypes = argtypes
-    return lib
-
-
 def library(built: Built | None = None) -> ctypes.CDLL:
     """The kernels' library, loaded once per process: ``built`` (a
     ``build()`` result) where given, else built here."""
     global _LIB
     with _LOCK:
         if _LIB is None:
-            _LIB = _load((built or build()).path)
+            lib = ctypes.CDLL(str((built or build()).path))
+            for fn, (restype, argtypes) in _SIGNATURES.items():
+                getattr(lib, fn).restype = restype
+                getattr(lib, fn).argtypes = argtypes
+            _LIB = lib
         return _LIB
-
-
-def timeline_library() -> ctypes.CDLL:
-    """The kernels built with K4's phase timeline: the same entry points,
-    plus ``alaz_k4_timeline(host)``, which copies the last K4 launch's
-    per-tile timestamps ([4096, 5] u64: start, ids loaded, walk done, end
-    in %globaltimer ns, and the SM). For measurement, never for serving."""
-    lib = _load(build(extra_flags=TIMELINE_FLAGS).path)
-    lib.alaz_k4_timeline.restype = _I
-    lib.alaz_k4_timeline.argtypes = [_P]
-    return lib
 
 
 def check(rc: int, what: str) -> None:

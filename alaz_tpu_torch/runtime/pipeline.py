@@ -13,9 +13,11 @@ on that stream, so the allocator does not reuse them while it still
 reads them. On the CPU the windows' arrays are handed out as tensors in
 place, on the caller's thread.
 
-``PinnedSets`` is the page-locked double buffer under the prefetcher and
-the train step's feed (``train/trainstep.py``): two sets of buffers take
-turns, and a set is refilled only after its last copies have finished.
+``PinnedSets`` is the page-locked double buffer under the prefetcher,
+the train step's feed (``train/trainstep.py``) and the Service's scorer
+(``runtime/service.py``, a window or a stacked group at a time): two
+sets of buffers take turns for each signature of arrays, and a set is
+refilled only after its last copies have finished.
 A fill splits the arrays by rows into parts of about equal bytes, one
 for each of half the cores the process may use, and copies them with
 ``np.copyto`` (which lets go of the GIL) on the calling thread and a
@@ -90,39 +92,59 @@ def _copy_part(part: list) -> None:
 
 
 class PinnedSets:
-    """Two sets of page-locked host buffers, ``{name: tensor}``, taking
-    turns. ``fill`` waits on the next set's last copies (the event handed
-    to ``copied``), then copies the arrays in, in parallel: a buffer is
-    kept while its name, shape and dtype recur, and made anew when they
-    change. The threads the fill copies on besides the caller's are made
-    at the first fill that splits, and end with the sets. ``pin`` False
-    makes plain host buffers (tests without a card)."""
+    """Page-locked host buffers, ``{name: tensor}``, two sets for each
+    signature of the arrays filled (their names, shapes and dtypes): a
+    signature's two sets take turns, and ``fill`` waits on the next set's
+    last copies (the event handed to ``copied``), then copies the arrays
+    in, in parallel. A set's buffers are made at its first fill and kept.
+    The threads the fill copies on besides the caller's are made at the
+    first fill that splits, and end with the sets. One thread fills;
+    ``fills`` counts its fills and ``reuses`` those into a set made
+    before. ``pin`` False makes plain host buffers (the CPU)."""
 
     def __init__(self, pin: bool = True):
         self.pin = pin
-        self._sets: list = [{}, {}]
-        self._copied: list = [None, None]  # each set's last copies' event
-        self._turn = 0
+        self._sets: list = []  # by slot; a signature's pair at 2k, 2k + 1
+        self._copied: list = []  # each set's last copies' event
+        self._turn: dict = {}  # signature → the slot it fills next
         self._pool: ThreadPoolExecutor | None = None
+        self.fills = self.reuses = 0
 
     def fill(self, arrays: dict) -> tuple:
-        """``arrays`` (numpy arrays or CPU tensors) into the next set →
-        ``(slot, {name: buffer})``; the arrays are not read after this
-        returns."""
-        slot = self._turn
-        self._turn ^= 1
+        """``arrays`` (numpy arrays or CPU tensors; for a name, a list of
+        W of one shape is stacked as ``[W, ...]``) into the next set of
+        their signature → ``(slot, {name: buffer})``; the arrays are not
+        read after this returns."""
+        srcs, sig = [], []
+        for k, a in arrays.items():
+            stacked = isinstance(a, list)
+            parts = [torch.as_tensor(x) for x in a] if stacked else [torch.as_tensor(a)]
+            srcs.append((parts, stacked))
+            sig.append((k, (len(a), *parts[0].shape) if stacked else tuple(parts[0].shape), parts[0].dtype))
+        sig = tuple(sig)
+        slot = self._turn.get(sig)
+        if slot is None:
+            slot = len(self._sets)
+            self._sets += [None, None]
+            self._copied += [None, None]
+        self._turn[sig] = slot ^ 1
         if self._copied[slot] is not None:
             self._copied[slot].synchronize()  # its last copies have landed
             self._copied[slot] = None
+        self.fills += 1
         bufs = self._sets[slot]
-        out, pairs = {}, []
-        for k, a in arrays.items():
-            src = torch.as_tensor(a)
-            buf = bufs.get(k)
-            if buf is None or buf.shape != src.shape or buf.dtype != src.dtype:
-                bufs[k] = buf = torch.empty(src.shape, dtype=src.dtype, pin_memory=self.pin)
-            out[k] = buf
-            pairs.append((_numpy_view(buf), _numpy_view(src)))
+        if bufs is None:
+            bufs = self._sets[slot] = {
+                k: torch.empty(shape, dtype=dtype, pin_memory=self.pin) for k, shape, dtype in sig
+            }
+        else:
+            self.reuses += 1
+        pairs = []
+        for (k, _, _), (parts, stacked) in zip(sig, srcs):
+            dst = _numpy_view(bufs[k])
+            # a stacked name's windows: one more (dst, src) pair each
+            dsts = [dst[w, ...] for w in range(len(parts))] if stacked else [dst]
+            pairs += [(d, _numpy_view(x)) for d, x in zip(dsts, parts)]
         n = fill_threads()
         first, *rest = split_rows(pairs, n) or [[]]
         if rest and self._pool is None:
@@ -131,7 +153,7 @@ class PinnedSets:
         _copy_part(first)
         for r in running:
             r.result()
-        return slot, out
+        return slot, bufs
 
     def copied(self, slot: int, event) -> None:
         """``event`` completes once set ``slot``'s copies have read it."""

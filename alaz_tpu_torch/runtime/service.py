@@ -13,9 +13,10 @@ The host plane (queues, aggregator, window close, spans, score plane,
 tenancy) is the JAX package's, copied. What differs is the device leg:
 
 - a window reaches the card by an asynchronous copy from page-locked
-  staging buffers (``StagingArenas``, pinned when the device is a card),
-  the counterpart of ``jax.device_put``'s asynchronous transfer: window
-  N+1's copy is issued before window N's result is read;
+  staging buffers (``runtime/pipeline.py PinnedSets``, as the train
+  step's feed does), the counterpart of ``jax.device_put``'s
+  asynchronous transfer: window N+1's copy is issued before window N's
+  result is read;
 - the backlog group path stacks W windows into ONE block-diagonal graph
   (``models/common.py group_graph``), where the JAX package vmaps the
   model: the kernels cannot run under ``jax.vmap``, and one launch per
@@ -61,6 +62,7 @@ from alaz_tpu_torch.obs.scores import ScorePlane
 from alaz_tpu_torch.obs.spans import SpanTracer
 from alaz_tpu_torch.ops.segment_kernels import k1_split_counts
 from alaz_tpu_torch.runtime.metrics import Metrics, device_gauges, host_gauges, ledger_gauges
+from alaz_tpu_torch.runtime.pipeline import PinnedSets
 from alaz_tpu_torch.runtime.tenancy import TenantPartition, validate_tenants
 from alaz_tpu_torch.utils.ledger import DropLedger
 from alaz_tpu_torch.utils.queues import BatchQueue
@@ -115,63 +117,6 @@ class ScoreBatch:
                 protocol=proto[int(self.protocol[i])],
                 score=float(self.score[i]),
             )
-
-
-class StagingArenas:
-    """Reusable host staging buffers for the group-score path.
-
-    One ``[W, ...]`` arena per (bucket-shape, W) key, so steady-state
-    group scoring allocates nothing on the host — the per-group stack
-    becomes ``np.copyto`` into a warm buffer. With ``pin`` the buffers
-    are page-locked, so the copy to the card is asynchronous. Arenas are
-    **double-buffered** per key: the scorer stages group k+1 into the
-    other buffer while group k's copy to the card and its compute may
-    still be reading the first, and it always reads group k's result
-    (which follows the copy in stream order) before a buffer comes
-    around again — two buffers are exactly enough.
-    """
-
-    def __init__(self, pin: bool = False) -> None:
-        # today a single scorer thread owns the arenas, but the swap is a
-        # read-modify-write: two concurrent fills for one key would hand
-        # out the SAME buffer (silent window corruption) — so the swap is
-        # locked; once per group dispatch, noise next to the copies
-        self.pin = pin
-        self._lock = threading.Lock()
-        self._pool: dict[tuple, list] = {}  # guarded-by: self._lock
-        self._next: dict[tuple, int] = {}  # guarded-by: self._lock
-        self.fills = 0  # guarded-by: self._lock
-        self.reuses = 0  # perf smoke: steady state must be allocation-free  # guarded-by: self._lock
-
-    def _alloc(self, shape: tuple, dtype: np.dtype) -> torch.Tensor:
-        tdtype = torch.from_numpy(np.empty(0, dtype)).dtype
-        return torch.empty(shape, dtype=tdtype, pin_memory=self.pin)
-
-    def fill(self, key: tuple, cols: List[dict]) -> dict:
-        """Copy ``cols`` (one device_arrays dict per window) into the
-        next arena for ``key`` and return it, as CPU tensors."""
-        k = (key, len(cols))
-        with self._lock:
-            arenas = self._pool.setdefault(k, [None, None])
-            i = self._next.get(k, 0)
-            self._next[k] = 1 - i
-            arena = arenas[i]
-            if arena is None:
-                arena = {
-                    name: self._alloc((len(cols),) + a.shape, a.dtype)
-                    for name, a in cols[0].items()
-                }
-                arenas[i] = arena
-            else:
-                self.reuses += 1
-            self.fills += 1
-        # the copies run OUTSIDE the lock: the double-buffer discipline
-        # (caller finishes group k before buffer k comes around again)
-        # makes the returned arena exclusively this caller's to fill
-        for w, c in enumerate(cols):
-            for name, a in c.items():
-                np.copyto(arena[name][w].numpy(), a)
-        return arena
 
 
 class ScoreClock:
@@ -290,11 +235,10 @@ class Service:
         # the plane, not the device. When set, graphs stay numpy (no
         # copy to a card, no kernel build) and ``score_many_fn(params,
         # stacked)`` — if given — serves the micro-batch group path over
-        # the stacked arenas as numpy arrays.
-        # OWNERSHIP: ``stacked`` is a REUSED double-buffered staging
-        # arena — score_many_fn must return arrays it owns (any
-        # arithmetic copies; a bare view would be clobbered by the next
-        # group's arena fill before the result is read).
+        # the stacked windows as numpy arrays.
+        # OWNERSHIP: ``stacked`` is a REUSED staging set — score_many_fn
+        # must return arrays it owns (any arithmetic copies; a bare view
+        # would be clobbered by a later group's fill).
         self._host_score = score_fn is not None
         if self._host_score and device is not None:
             raise ValueError("score_fn scores on the host: pass no device with it")
@@ -439,7 +383,7 @@ class Service:
         # the batch's true aggregated row count on drop instead. ONE
         # queue for all tenants: this is where cross-tenant batching
         # happens — close waves from every partition interleave here and
-        # the scorer packs same-bucket windows into shared arenas.
+        # the scorer packs same-bucket windows into one stacked fill.
         self.window_queue = BatchQueue(10_000_000, "windows")
 
         renumber = getattr(self.config, "renumber_nodes", False)
@@ -551,13 +495,9 @@ class Service:
         # twin of the score fn for window-independent models. TGN is
         # excluded — its memory threads sequentially through windows.
         self._score_many_fn = None
-        # page-locked on a card, so the copies to it are asynchronous;
-        # the serial path stages through its own pair (W=1), so the
-        # group arenas' fills/reuses count groups only, as in the JAX
-        # package
-        pin = self.torch_device.type == "cuda"
-        self._stage_arenas = StagingArenas(pin=pin)
-        self._serial_arenas = StagingArenas(pin=pin)
+        # the scorer's staging buffers, serial windows' and groups':
+        # page-locked on a card, so the copies to it are asynchronous
+        self._staging_sets = PinnedSets(pin=self.torch_device.type == "cuda")
         self._batch_windows = max(1, int(self.config.score_batch_windows))
         # the device time each score step reports to the device plane
         # (latency.score_s.<bucket>); the host's time is the score span
@@ -884,17 +824,45 @@ class Service:
             except Exception as exc:
                 log.warning(f"housekeeping failed: {exc}")
 
-    def _to_device(self, batch: GraphBatch, cols: dict) -> dict:
-        """Issue one window's copy to the device. On a card the columns
-        go through a page-locked staging buffer and the copy is
-        asynchronous (it returns before the copy ends, as
-        ``jax.device_put`` does); the buffer comes around again only
-        after this window's result was read, which follows the copy in
-        stream order. On the CPU the arrays are used in place."""
-        if self.torch_device.type != "cuda":
-            return {k: torch.from_numpy(v) for k, v in cols.items()}
-        arena = self._serial_arenas.fill((batch.n_pad, batch.e_pad), [cols])
-        return {k: v[0].to(self.torch_device, non_blocking=True) for k, v in arena.items()}
+    def _stage(self, tracer: SpanTracer, key, batches: list, width: int = 0) -> dict:
+        """One dispatch's span ``stage`` on ``tracer`` under ``key`` (a
+        window, or a group's members): the windows' columns (with
+        ``width``, each name's stacked ``[width, ...]``, padded with the
+        last window), filled into the scorer's staging sets and copied to
+        the device. On a card the copy is asynchronous (it returns before
+        the copy ends, as ``jax.device_put`` does), and an event recorded
+        after it guards the set's refill, as in the train step's feed. On
+        the CPU one window's arrays are used in place and a group's stack
+        is the set's buffers, numpy for a host scorer. The span's time
+        goes to the scorer's busy time; the windows, the bytes and the
+        fill/copy split to the device plane."""
+        on_card = self.torch_device.type == "cuda"
+        with self._bucket_ctx(batches[0]), tracer.span("stage", key) as stage:
+            cols = [b.device_arrays(self.config.model.edge_layout) for b in batches]
+            arrays = cols[0]
+            if width:
+                cols += [cols[-1]] * (width - len(cols))
+                arrays = {k: [c[k] for c in cols] for k in arrays}
+            if on_card or width:
+                slot, arrays = self._staging_sets.fill(arrays)
+            fill_s = time_module.perf_counter() - stage.t0
+            if on_card:
+                arrays = {k: v.to(self.torch_device, non_blocking=True) for k, v in arrays.items()}
+                done = torch.cuda.Event()
+                done.record()
+                self._staging_sets.copied(slot, done)
+            elif self._host_score:
+                arrays = {k: np.asarray(v) for k, v in arrays.items()}
+            else:
+                arrays = {k: torch.as_tensor(v) for k, v in arrays.items()}
+        self._scorer_busy_s += stage.wall_s
+        for b in batches:
+            # occupancy per REAL window: a group's padding re-ships its
+            # last member's columns, a dispatch artifact whose logits are
+            # discarded
+            self.device.observe_staged(b)
+        self.device.observe_transfer(sum(v.nbytes for v in arrays.values()), fill_s, stage.wall_s - fill_s)
+        return arrays
 
     def _scorer_worker(self) -> None:
         # double buffering (SURVEY §2.3 P3): window N+1's host→device
@@ -902,7 +870,7 @@ class Service:
         # window N is scored, so the feed overlaps the compute. FIFO order
         # is kept — the temporal model's memory threading depends on it.
         # The same discipline covers the GROUP path: a group is staged
-        # (arena stack + copy + dispatch) and only finished (its result
+        # (stacked fill + copy + dispatch) and only finished (its result
         # read) after the next work is staged, so host stacking of group
         # k+1 overlaps device compute of group k.
         # staged: ("one", batch, device arrays) | ("group", batches, out,
@@ -1000,7 +968,7 @@ class Service:
 
         def stage_group(batches) -> tuple:
             """Stage same-bucket windows for ONE stacked dispatch: stack
-            into a reused host arena (StagingArenas — no per-group
+            them into the scorer's reused staging sets (no per-group
             allocation), start the host→device copy and dispatch the
             group score fn WITHOUT reading its result — the caller
             holds the returned staged entry and finishes it after the
@@ -1021,44 +989,20 @@ class Service:
                 self.score_dispatches += 1
                 # cross-tenant batching: the group was packed
                 # purely by bucket shape — windows from different fleets
-                # share one arena fill and one dispatch
+                # share one fill and one dispatch
                 if len({int(getattr(b, "tenant", 0)) for b in batches}) > 1:
                     self.multi_tenant_groups += 1
-                # the whole group staged in one arena fill + transfer and
+                # the whole group staged in one fill + transfer and
                 # dispatched once: each member's span carries the shared
                 # times (critical-path semantics — observe keeps the max)
                 members = [(self._tracer_for(b), b.window_start_ms) for b in batches]
-                with self.tracer.span("stage", members) as stage:
-                    # layout selection: the scorer's ModelConfig
-                    # decides the pytree — under "blocked" every window ships
-                    # its (already close-time-computed) extents, and the
-                    # arenas pick the column up generically from cols[0]
-                    cols = [
-                        b.device_arrays(self.config.model.edge_layout)
-                        for b in batches
-                    ]
-                    target = 1
-                    while target < len(cols):
-                        target *= 2
-                    # never exceed the operator's cap: batch_windows may be
-                    # sized to device memory at the largest bucket, and a
-                    # non-power-of-two cap must not round up past itself
-                    target = min(target, self._batch_windows)
-                    if len(cols) < target:
-                        cols = cols + [cols[-1]] * (target - len(cols))
-                    arena = self._stage_arenas.fill(
-                        (batches[0].n_pad, batches[0].e_pad), cols
-                    )
-                    arena_s = time_module.perf_counter() - stage.t0
-                    if self._host_score:
-                        # host scorer: the arena IS the stacked input — no
-                        # copy to a device exists to issue
-                        stacked = {k: v.numpy() for k, v in arena.items()}
-                    else:
-                        # on the CPU ``.to`` returns the arena itself: the group
-                        # fn's outputs are new tensors, so the arena's next fill
-                        # cannot clobber a result before it is read
-                        stacked = {k: v.to(self.torch_device, non_blocking=True) for k, v in arena.items()}
+                target = 1
+                while target < len(batches):
+                    target *= 2
+                # never exceed the operator's cap: batch_windows may be
+                # sized to device memory at the largest bucket, and a
+                # non-power-of-two cap must not round up past itself
+                stacked = self._stage(self.tracer, members, batches, min(target, self._batch_windows))
                 # the group's dispatch runs here, at staging, ahead of its
                 # score stage (finish_group's read): no parent stage
                 with self._bucket_ctx(batches[0]), self.tracer.span("dispatch", members) as dispatch:
@@ -1066,20 +1010,7 @@ class Service:
                     out = self._score_many_fn(self.model_state, stacked)
                     if clock is not None:
                         self._score_clock.stop(clock)
-                self._scorer_busy_s += stage.wall_s + dispatch.wall_s
-                for b in batches:
-                    # occupancy per REAL window — the group's
-                    # power-of-two padding re-ships the last member's
-                    # columns, but that's a dispatch artifact (its
-                    # logits are discarded), not a staged window
-                    self.device.observe_staged(b)
-                # one dispatch: arena fill vs transfer split + the bytes
-                # the whole stacked group shipped
-                self.device.observe_transfer(
-                    sum(v.nbytes for v in arena.values()),
-                    arena_s,
-                    stage.wall_s - arena_s,
-                )
+                self._scorer_busy_s += dispatch.wall_s
                 return ("group", batches, out, clock)
             except BaseException:
                 for _ in batches:
@@ -1177,23 +1108,7 @@ class Service:
                         finish(prev)
                     continue
                 try:
-                    with self._tracer_for(batch).span("stage", batch.window_start_ms) as stage:
-                        # host prep (lazy node_deg fill etc.) vs transfer
-                        # dispatch: the serial path's arena analog is the
-                        # device_arrays() call — same decomposition the
-                        # group path gets from its arena fill
-                        cols = batch.device_arrays(self.config.model.edge_layout)
-                        arena_s = time_module.perf_counter() - stage.t0
-                        # a host scorer takes the numpy columns: no copy
-                        with self._bucket_ctx(batch):
-                            graph = cols if self._host_score else self._to_device(batch, cols)
-                    self._scorer_busy_s += stage.wall_s
-                    self.device.observe_staged(batch)
-                    self.device.observe_transfer(
-                        sum(v.nbytes for v in cols.values()),
-                        arena_s,
-                        stage.wall_s - arena_s,
-                    )
+                    graph = self._stage(self._tracer_for(batch), batch.window_start_ms, [batch])
                 except Exception:
                     # the popped window still owes its accounting
                     self.window_queue.task_done()

@@ -9,8 +9,7 @@ Phases, each raising on failure:
 
 1. build     -- compile ``alaz_tpu_torch/csrc/segment.cu`` with nvcc into
                 ``build/alaz_tpu_torch/`` and print ptxas's register,
-                shared-memory and spill lines; its K4-timeline build
-                compiles alongside;
+                shared-memory and spill lines;
    gpu env   -- the NVML collector (``runtime/gpu_env.py``) registers on
                 the card with its default legs under the JAX package's
                 gauge names; its gauges, read between two ``nvidia-smi``
@@ -72,7 +71,7 @@ Phases, each raising on failure:
                 per dispatch; each run's windows scored again under the
                 plain versions; GraphSAGE's windows, repeated to
                 twelve, as a backlog at ``score_batch_windows=4`` (the
-                group path) against its serial scores; close → score latency, edges/s, arenas,
+                group path) against its serial scores; close → score latency, edges/s, staging sets,
                 peak memory, and the same windows through
                 ``WindowScorer``;
    serve native -- the same Service through native ingest: the C++ ingest
@@ -197,10 +196,9 @@ Phases, each raising on failure:
                 argsort pass they replaced); for
                 K4 on each window also its device time without the host's,
                 the CUPTI time of its three kernels, the window's tile and
-                reuse counts, its phase timeline and its time with every
-                edge on one src row; per-window score time of all four
-                models, and a profile of the device time by kernel over
-                scored windows of each.
+                reuse counts and its time with every edge on one src row;
+                per-window score time of all four models, and a profile of
+                the device time by kernel over scored windows of each.
 
 Not a phase: ``eval_matrix()`` runs ``python -m alaz_tpu_torch eval`` with
 its defaults on the card, timed per call, as a chip call of its own:
@@ -280,16 +278,12 @@ def _counts(k1: int, k2: int, k3: int, k4: int) -> dict:
 
 
 def phase_build() -> None:
-    """Build the kernels and, in parallel, their K4-timeline build (one nvcc
-    each, started together)."""
+    """Build the kernels and load them."""
     from alaz_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    timeline = threading.Thread(target=_build.build, kwargs={"extra_flags": _build.TIMELINE_FLAGS})
-    timeline.start()
     built = _build.build()
-    _build.library()
-    timeline.join()
+    _build.library(built)
     seconds = time.perf_counter() - t0
     for line in built.log.splitlines():
         if any(k in line for k in ("Compiling entry", "registers", "spill", "smem")):
@@ -1043,10 +1037,9 @@ def _serve_once(cfg, params, sim_cfg=None, backlog=None, device: str = "cuda",
             "scorer_busy_s": svc._scorer_busy_s,
             "edges_per_s_scorer_busy": svc.scored_edges / max(svc._scorer_busy_s, 1e-9),
             "scorer_duty_cycle_pct": 100.0 * svc._scorer_busy_s / wall,
-            "group_arenas": {"fills": svc._stage_arenas.fills, "reuses": svc._stage_arenas.reuses,
-                             "pinned": svc._stage_arenas.pin},
-            "serial_arenas": {"fills": svc._serial_arenas.fills, "reuses": svc._serial_arenas.reuses,
-                              "pinned": svc._serial_arenas.pin},
+            # the scorer's staging sets, serial windows' and groups' fills together
+            "staging_sets": {"fills": svc._staging_sets.fills, "reuses": svc._staging_sets.reuses,
+                             "pinned": svc._staging_sets.pin},
             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated() if on_card else None,
             "launches": launches,
             # K1's rows split across chunk warps in this run, and their edges
@@ -1197,7 +1190,7 @@ def phase_serve(device: str = "cuda", runs=SERVE_RUNS) -> dict:
             group = _serve_once(gcfg, params, backlog=backlog, device=device)
             gs = group["summary"]
             require(gs["score_dispatches"] == len(backlog) // 4, f"serve graphsage: groups {gs['score_dispatches']}")
-            require(gs["group_arenas"]["reuses"] >= 1, "serve graphsage: no group arena reused")
+            require(gs["staging_sets"]["reuses"] >= 1, "serve graphsage: no staging set reused")
             _require_launches(family, group)
             launches["serve_graphsage_groups"] = gs["launches"]
             with plain_kernels():
@@ -3645,44 +3638,10 @@ K4_KERNELS = ("block_starts_kernel", "gather_scatter_tile_kernel", "gather_scatt
 SORT_KERNELS = ("sort_upsweep_kernel", "sort_scan_kernel", "sort_downsweep_kernel")
 
 
-def k4_timeline(call, n_tiles: int) -> dict:
-    """One call through the kernels' timeline build: per tile, the time to
-    get its ids into shared memory, to walk, and to combine and finish
-    (including its share of the empty blocks), in µs, and when the tiles
-    start and end relative to the first."""
-    from alaz_tpu_torch.ops import _build
-
-    lib = _build.timeline_library()
-    saved = _build._LIB
-    _build._LIB = lib
-    try:
-        call()
-        torch.cuda.synchronize()
-    finally:
-        _build._LIB = saved
-    stamps = np.zeros(4096 * 5, dtype=np.uint64)
-    require(lib.alaz_k4_timeline(stamps.ctypes.data) == 0, "K4 timeline copy failed")
-    t = stamps.reshape(-1, 5)[: min(n_tiles, 4096)].astype(np.int64)
-    t0 = t[:, 0].min()
-    us = lambda a: float(a.mean()) / 1e3
-    quantiles = lambda a: [float(q) / 1e3 for q in np.quantile(a - t0, [0, 0.5, 0.9, 1])]
-    return {
-        "tiles": len(t),
-        "span_us": float(t[:, 3].max() - t0) / 1e3,
-        "tile_us": us(t[:, 3] - t[:, 0]),
-        "load_us": us(t[:, 1] - t[:, 0]),
-        "walk_us": us(t[:, 2] - t[:, 1]),
-        "combine_us": us(t[:, 3] - t[:, 2]),
-        "start_us_quantiles": quantiles(t[:, 0]),
-        "end_us_quantiles": quantiles(t[:, 3]),
-        "most_tiles_on_one_sm": int(np.bincount(t[:, 4]).max()),
-    }
-
-
 def numbers_k4(b, x, gen, dev) -> dict:
     """K4 on one window's edges (bf16, F=128, weighted, COO): back-to-back
     CUDA-event time, device time of one call, CUPTI time of its three
-    kernels, its phase timeline, its time with every edge on one src row,
+    kernels, its time with every edge on one src row,
     its bound, the plain version, ``torch.sparse.mm`` over a CSR of the same
     edges, and ``torch.searchsorted`` for the row starts its kernel finds."""
     from alaz_tpu_torch.ops import segment_kernels as K
@@ -3731,7 +3690,6 @@ def numbers_k4(b, x, gen, dev) -> dict:
     out["same_src_row_device_ms"] = device_ms(
         lambda: K.pallas_gather_scatter_sum(x, same_row, dst, N_MAIN, w)
     )
-    out["timeline"] = k4_timeline(call, out["live_tiles"])
     return out
 
 

@@ -810,16 +810,17 @@ def _card_serve(layout: str, batch_windows: int, duration_s: float):
     ("coo", 4, 3.0, 1),      # W=3, padded to 4 by repeating the last window
     ("blocked", 4, 4.0, 1),  # a blocked-layout group of 4
     ("coo", 4, 5.0, 2),      # a ragged backlog: a group of 4, then one window serially
-    ("coo", 2, 6.0, 3),      # three groups of 2: the first arena's buffer comes around again
+    ("coo", 2, 6.0, 3),      # three groups of 2: the first staging set comes around again
 ])
 def test_service_group_path_matches_serial_on_card(dev, layout, batch_windows, duration_s, dispatches):
     """The group path's block-diagonal stack through K1 and K2 on the card
     against the serial path on the same windows, scores within the f32
     oracle's 1e-4. Groups staged back to back go through the two pinned
-    buffers of one arena key in turn; a buffer overwritten while its copy
-    to the card was in flight would give its group another window's
-    scores. Each dispatch launches K1 twice (GraphSAGE's two layers) and
-    K2 once (the edge head), a group as one window."""
+    sets of their signature in turn, and serial windows through those of
+    theirs; a set overwritten while its copy to the card was in flight
+    would give its window or group another window's scores. Each dispatch
+    launches K1 twice (GraphSAGE's two layers) and K2 once (the edge
+    head), a group as one window."""
     n_windows = int(duration_s)
     gsvc, group, glaunch, graised = _card_serve(layout, batch_windows, duration_s)
     ssvc, serial, slaunch, sraised = _card_serve(layout, 1, duration_s)
@@ -827,9 +828,12 @@ def test_service_group_path_matches_serial_on_card(dev, layout, batch_windows, d
     assert gsvc.scored_batches == ssvc.scored_batches == n_windows
     assert gsvc.metrics.counter("windows.closed").value == n_windows
     assert gsvc.score_dispatches == dispatches and ssvc.score_dispatches == n_windows
-    assert gsvc._stage_arenas.pin
+    assert gsvc._staging_sets.pin and ssvc._staging_sets.pin
     if batch_windows == 2:
-        assert (gsvc._stage_arenas.fills, gsvc._stage_arenas.reuses) == (3, 1)
+        assert (gsvc._staging_sets.fills, gsvc._staging_sets.reuses) == (3, 1)
+    # one fill a serial window; a set is made once, then refilled
+    made = sum(bufs is not None for bufs in ssvc._staging_sets._sets)
+    assert (ssvc._staging_sets.fills, ssvc._staging_sets.reuses) == (n_windows, n_windows - made)
     for svc, launches in ((gsvc, glaunch), (ssvc, slaunch)):
         assert launches["scatter_sum_sorted"] == 2 * svc.score_dispatches
         assert launches["segment_expand_sorted"] == svc.score_dispatches

@@ -164,6 +164,65 @@ def test_a_set_makes_a_buffer_anew_when_shape_or_dtype_change():
     assert list(d) == ["x"]
 
 
+def test_stacked_fill_is_bit_equal_to_np_stack(threads):
+    """W windows' arrays of one shape for a name, stacked into one
+    ``[W, ...]`` buffer beside a plain array, split over the threads: the
+    buffer is ``np.stack`` of them bit for bit."""
+    shape = (65_537, 16)
+    wins = [_array(np.float32, shape, seed=w) for w in range(3)]
+    masks = [_array(np.bool_, shape[:1], seed=10 + w) for w in range(3)]
+    one = _array(np.int32, (100_003,), seed=20)
+    _, bufs = PinnedSets(pin=False).fill({"x": wins, "m": masks, "one": one})
+    assert tuple(bufs["x"].shape) == (3, *shape) and tuple(bufs["m"].shape) == (3, shape[0])
+    assert bufs["x"].numpy().tobytes() == np.stack(wins).tobytes()
+    assert bufs["m"].numpy().tobytes() == np.stack(masks).tobytes()
+    assert bufs["one"].numpy().tobytes() == one.tobytes()
+
+
+def test_each_signature_keeps_its_own_pair():
+    """Two signatures filled in turns (a window, and a stack of two):
+    each takes turns on its own pair, and a signature's third fill goes
+    into its first fill's buffers."""
+    sets = PinnedSets(pin=False)
+    a = {"x": np.zeros((6, 2), np.float32)}
+    b = {"x": [np.ones((6, 2), np.float32)] * 2}
+    fills = [sets.fill(arrays) for arrays in (a, b, a, b, a, b)]
+    slots = [slot for slot, _ in fills]
+    assert slots[0::2] == [0, 1, 0] and slots[1::2] == [2, 3, 2]
+    ptr = [bufs["x"].data_ptr() for _, bufs in fills]
+    assert ptr[4] == ptr[0] != ptr[2] and ptr[5] == ptr[1] != ptr[3]
+    assert len(set(ptr)) == 4
+    assert (sets.fills, sets.reuses) == (6, 2)
+    assert torch.equal(fills[4][1]["x"], torch.zeros(6, 2)) and torch.equal(fills[5][1]["x"], torch.ones(2, 6, 2))
+
+
+def test_a_set_is_refilled_only_after_its_own_event():
+    """Each set waits on its own last copies' event, and only on that, before
+    it is refilled: the set still holds its window while it waits."""
+    sets = PinnedSets(pin=False)
+    events = {}
+
+    def fill_and_copy(arrays, name):
+        slot, bufs = sets.fill(arrays)
+        held = {k: v.clone() for k, v in bufs.items()}
+        events[name] = StandInEvent(on_wait=lambda: seen.append(
+            (name, all(torch.equal(bufs[k], held[k]) for k in held))))
+        sets.copied(slot, events[name])
+
+    seen = []
+    fill_and_copy({"x": np.full(4, 1.0, np.float32)}, "a1")
+    fill_and_copy({"x": [np.full(4, 2.0, np.float32)] * 2}, "b1")
+    fill_and_copy({"x": np.full(4, 3.0, np.float32)}, "a2")
+    assert seen == [] and all(e.waits == 0 for e in events.values())
+    fill_and_copy({"x": np.full(4, 4.0, np.float32)}, "a3")  # a1's set
+    assert seen == [("a1", True)]
+    assert [events[k].waits for k in ("a1", "b1", "a2")] == [1, 0, 0]
+    fill_and_copy({"x": [np.full(4, 5.0, np.float32)] * 2}, "b2")  # b's other set: nothing to wait on
+    assert events["b1"].waits == 0
+    fill_and_copy({"x": [np.full(4, 6.0, np.float32)] * 2}, "b3")  # b1's set
+    assert seen == [("a1", True), ("b1", True)] and events["b1"].waits == 1
+
+
 def test_feed_stages_host_arrays_and_passes_device_tensors():
     """On a device other than the CPU (``meta`` stands for a card): numpy
     arrays and CPU tensors go through the sets, one event after their

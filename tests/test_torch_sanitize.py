@@ -136,18 +136,20 @@ class TestLockOrderMonitor:
 
 
 class TestHostPipelineLockOrder:
-    def test_ingest_to_staging_stress_is_acyclic(self, lock_sanitizer):
+    def test_ingest_to_staging_stress_is_acyclic(self, lock_sanitizer, monkeypatch):
         """The port's host pipeline — ingest server → service queues →
-        aggregator/interner → staging arenas — under instrumented locks:
-        acyclic, and a real multi-lock graph was exercised."""
+        aggregator/interner → staging sets (stacked fills split over four
+        threads) — under instrumented locks: acyclic, and a real
+        multi-lock graph was exercised."""
         mon = lock_sanitizer
         from alaz_tpu_torch.events.schema import make_l7_events
-        from alaz_tpu_torch.runtime.service import Service, StagingArenas
+        from alaz_tpu_torch.runtime import pipeline
+        from alaz_tpu_torch.runtime.service import Service
         from alaz_tpu_torch.sources.ingest_server import KIND_L7, IngestServer, send_batches
 
+        monkeypatch.setattr(pipeline, "fill_threads", lambda: 4)  # a fill splits on any host
         svc = Service(device="cpu")  # no model: the host pipeline
         server = IngestServer(svc, port=0)
-        arenas = StagingArenas()
         svc.start()
         server.start()
         try:
@@ -158,14 +160,16 @@ class TestHostPipelineLockOrder:
             def agent(n_frames: int) -> None:
                 send_batches(server.address, [(KIND_L7, ev)] * n_frames)
 
-            cols = [{"x": np.zeros((8, 4), np.float32)} for _ in range(2)]
+            # two windows of 1 MiB, stacked: each fill splits four ways
+            stack = {"x": [np.zeros((4096, 64), np.float32) for _ in range(2)]}
 
-            def stager(key: str) -> None:
+            def stager() -> None:
+                sets = pipeline.PinnedSets(pin=False)  # one filling thread per sets
                 for _ in range(50):
-                    arenas.fill((key, 8), cols)
+                    sets.fill(stack)
 
             threads = [threading.Thread(target=agent, args=(20,)) for _ in range(4)]
-            threads += [threading.Thread(target=stager, args=(k,)) for k in ("a", "b")]
+            threads += [threading.Thread(target=stager) for _ in range(2)]
             for t in threads:
                 t.start()
             for t in threads:

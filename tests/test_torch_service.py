@@ -24,8 +24,8 @@ Held here:
   (``ENGINE_BACKEND=native``, ``use_native_ingest=True``: the C++ L7
   engine and window accumulator): the windows, and the scores of
   GraphSAGE over COO and GAT renumbered and blocked;
-- TGN refusing the group path and ``renumber_nodes``; arena reuse in
-  steady state; the metric names; no card, no service.
+- TGN refusing the group path and ``renumber_nodes``; staging-set reuse
+  in steady state; the metric names; no card, no service.
 """
 
 from __future__ import annotations
@@ -247,7 +247,7 @@ def test_group_path_matches_vmap_and_serial(family, layout):
     n = psvc.metrics.counter("windows.closed").value
     assert psvc.scored_batches == n == jsvc.scored_batches >= 3
     assert psvc.score_dispatches == jsvc.score_dispatches == 1
-    assert psvc._stage_arenas.fills == 1
+    assert psvc._staging_sets.fills == 1
     _assert_maps_close(_score_map(prec), _score_map(jrec), _tol(kw))
     _assert_maps_close(_score_map(prec), _score_map(srec), _tol(kw))
     if family == "gat":
@@ -324,17 +324,19 @@ def test_ragged_backlog_groups_then_scores_the_rest_serially():
 
 def test_arenas_reuse_in_steady_state():
     """Groups of two over a backlog of six same-bucket windows: the two
-    buffers of the double buffer are allocated once, then reused, as the
-    JAX package's arenas are."""
+    sets of the scorer's staging buffers are made once, then reused, as
+    the JAX package's arenas are over the same three groups (three fills,
+    one reuse: ``tests/test_ingest_vectorized.py`` holds its arenas to
+    that)."""
     jcfg, pcfg = _cfgs(batch_windows=2)
     jparams = _params(jcfg)
     jsvc, _, _ = _serve("jax", jcfg, jax.tree_util.tree_map(jax.numpy.asarray, jparams), duration_s=6.0)
     psvc, _, wins = _serve("port", pcfg, _port_params(pcfg, jparams), duration_s=6.0)
     assert len({w.bucket_key for w in wins}) == 1 and len(wins) == 6
-    arenas = psvc._stage_arenas
-    assert (arenas.fills, arenas.reuses) == (3, 1)
-    assert (arenas.fills, arenas.reuses) == (jsvc._stage_arenas.fills, jsvc._stage_arenas.reuses)
-    assert not arenas.pin  # page-locked only on a card
+    assert psvc.score_dispatches == jsvc.score_dispatches == 3
+    sets = psvc._staging_sets
+    assert (sets.fills, sets.reuses) == (3, 1)
+    assert not sets.pin  # page-locked only on a card
 
 
 def test_tgn_refuses_grouping_and_renumbering():
