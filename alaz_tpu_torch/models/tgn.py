@@ -27,6 +27,8 @@ from alaz_tpu_torch.config import ModelConfig
 from alaz_tpu_torch.device import resolve_device
 from alaz_tpu_torch.models import graphsage
 from alaz_tpu_torch.models.common import Dense, compute_dtype, dense
+from alaz_tpu_torch.ops import gru_kernels
+from alaz_tpu_torch.ops.segment import kernels_enabled
 from alaz_tpu_torch.sanitize.retrace import dispatch
 
 
@@ -99,22 +101,16 @@ def update(params: TGN, graph: dict, memory: torch.Tensor, node_h: torch.Tensor,
     """The GRU memory update: ``m_t`` on the window's active nodes from
     ``m_{t-1}`` (``memory``, at least the node bucket's rows, as ``encode``
     returns it) and the window's node states ``node_h``; every other row
-    as it was."""
+    as it was. One kernel (``ops/gru_kernels.py gru_update``) where the
+    config asks for the kernels, the tensors are on a card, the compute
+    dtype is bf16 and no gradient is being recorded (the kernel has no
+    backward); else the plain version."""
     dtype = compute_dtype(cfg)
-    n_pad = node_h.shape[0]
-    m_prev = memory[:n_pad]
-    h = node_h.float()
-    hz = torch.cat([m_prev.to(dtype), h.to(dtype)], dim=-1)
-    r = torch.sigmoid(dense(params.gru_r, hz)).float()
-    z = torch.sigmoid(dense(params.gru_z, hz)).float()
-    hn = torch.cat([(r * m_prev).to(dtype), h.to(dtype)], dim=-1)
-    n_t = torch.tanh(dense(params.gru_n, hn)).float()
-    m_new = (1 - z) * n_t + z * m_prev
-
-    m_next = torch.where(graph["node_mask"][:, None], m_new, m_prev)
-    if memory.shape[0] > n_pad:
-        m_next = torch.cat([m_next, memory[n_pad:]])
-    return m_next
+    mask = graph["node_mask"]
+    if (kernels_enabled(cfg.use_pallas) and memory.is_cuda and dtype == torch.bfloat16
+            and not torch.is_grad_enabled()):
+        return gru_kernels.gru_update(params.gru_r, params.gru_z, params.gru_n, memory, node_h, mask)
+    return gru_kernels.gru_update_plain(params.gru_r, params.gru_z, params.gru_n, memory, node_h, mask, dtype)
 
 
 def step(params: TGN, graph: dict, memory: torch.Tensor, cfg: ModelConfig) -> tuple:

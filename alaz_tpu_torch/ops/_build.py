@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels.
 
-``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
-shared library with a plain C interface, loaded with ``ctypes``. The
-build happens at first use, into ``build/alaz_tpu_torch/`` at the root of
-the checkout, from the checkout's own sources; the library's file name
-carries a hash of its source and flags, so an edited source rebuilds.
-Nothing here runs at import.
+``csrc/segment.cu`` and ``csrc/gru.cu`` are compiled by ``nvcc`` for
+Hopper (``sm_90a``) into one shared library with a plain C interface,
+loaded with ``ctypes``. The build happens at first use, into
+``build/alaz_tpu_torch/`` at the root of the checkout, from the
+checkout's own sources; the library's file name carries a hash of its
+sources and flags, so an edited source rebuilds. Nothing here runs at
+import.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
+SOURCES = ("segment.cu", "gru.cu")  # one library
 BUILD_DIR = _PKG.parent / "build" / "alaz_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -30,7 +32,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures of csrc/segment.cu: every pointer and the stream as
+# C signatures of the sources: every pointer and the stream as
 # c_void_p, so no pointer is cut to 32 bits
 _SIGNATURES = {
     "alaz_scatter_sum_sorted": (
@@ -48,6 +50,8 @@ _SIGNATURES = {
     "alaz_sort_scratch_words": (ctypes.c_longlong, [_I]),
     "alaz_sort_tile_keys": (_I, []),
     "alaz_cuda_error_string": (ctypes.c_char_p, [_I]),
+    "alaz_gru_update": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "alaz_gru_activations": (_I, [_P, _P, _I, _P]),
 }
 
 
@@ -68,25 +72,27 @@ def nvcc_path() -> str:
 
 
 def build(name: str = "segment") -> Built:
-    """Compile ``csrc/<name>.cu`` unless this exact source and flag set
-    was built already. Either way one build event ``name`` reaches the
-    open compile watchers (``sanitize/retrace.py``), with its seconds."""
+    """Compile ``SOURCES`` into the library ``libalaz_<name>`` unless these
+    exact sources and flag set were built already. Either way one build
+    event ``name`` reaches the open compile watchers
+    (``sanitize/retrace.py``), with its seconds."""
     from alaz_tpu_torch.sanitize.retrace import build_event
 
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    srcs = [CSRC / s for s in SOURCES]
+    blob = b"".join(s.name.encode() + s.read_bytes() for s in srcs)
+    digest = hashlib.sha256(blob + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"libalaz_{name}-{digest}.so"
-    with build_event(name, f"nvcc {src.name} -> {out.name}"):
-        return _nvcc(src, NVCC_FLAGS, out)
+    with build_event(name, f"nvcc {' '.join(s.name for s in srcs)} -> {out.name}"):
+        return _nvcc(srcs, NVCC_FLAGS, out)
 
 
-def _nvcc(src: Path, flags: tuple, out: Path) -> Built:
+def _nvcc(srcs: list, flags: tuple, out: Path) -> Built:
     log_path = out.with_suffix(".log")
     if out.exists() and log_path.exists():
         return Built(out, log_path.read_text())
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *flags, "-o", str(tmp), str(src)]
+    cmd = [nvcc_path(), *flags, "-o", str(tmp), *map(str, srcs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:

@@ -60,6 +60,7 @@ from alaz_tpu_torch.obs.device import CompileEventPlane, DeviceTelemetry, bucket
 from alaz_tpu_torch.obs.recorder import FlightRecorder
 from alaz_tpu_torch.obs.scores import ScorePlane
 from alaz_tpu_torch.obs.spans import SpanTracer
+from alaz_tpu_torch.ops.gru_kernels import gru_update
 from alaz_tpu_torch.ops.segment_kernels import k1_split_counts
 from alaz_tpu_torch.runtime.metrics import Metrics, device_gauges, host_gauges, ledger_gauges
 from alaz_tpu_torch.runtime.pipeline import PinnedSets
@@ -1133,17 +1134,21 @@ class Service:
         (``tgn.make_step_fn``) window by window, and the memory update's
         own series, registered here alone (tgn only): the span stage
         ``memory``; on a card ``latency.memory_device_s``, a CUDA event
-        pair around the update's launches (``ScoreClock``); the gauge
-        ``tgn.memory_rows``; the counters ``tgn.memory_grows`` (each
-        zero-extension reallocates the memory: size ``tgn_max_nodes``
-        to the largest bucket) and ``tgn.memory_rows_updated`` (live
-        rows, summed over windows, counted on the device and copied back
-        without a wait). On a card a window's device time and rows are
+        pair around the update's launches (``ScoreClock``); the gauges
+        ``tgn.memory_rows`` and ``tgn.memory_update_kernel`` (the GRU
+        kernel's launches in the process, ``gru_update.launches``: one a
+        window scored on a card, 0 on the CPU); the counters
+        ``tgn.memory_grows`` (each zero-extension reallocates the
+        memory: size ``tgn_max_nodes`` to the largest bucket) and
+        ``tgn.memory_rows_updated`` (live rows, summed over windows,
+        counted on the device and copied back without a wait). On a
+        card a window's device time and rows are
         read when the next window is scored: the scorer read the
         window's logits in between, which synchronised past both, so
         reading them needs no sync of its own."""
         self.tracer.add_stage("memory")
         self.metrics.gauge("tgn.memory_rows", lambda: self._tgn_memory.shape[0])
+        self.metrics.gauge("tgn.memory_update_kernel", lambda: gru_update.launches)
         grows = self.metrics.counter("tgn.memory_grows")
         rows_updated = self.metrics.counter("tgn.memory_rows_updated")
         on_card = self.torch_device.type == "cuda"

@@ -7,7 +7,7 @@ Run from the root of a checkout:
 
 Phases, each raising on failure:
 
-1. build     -- compile ``alaz_tpu_torch/csrc/segment.cu`` with nvcc into
+1. build     -- compile ``alaz_tpu_torch/csrc/segment.cu`` and ``gru.cu`` with nvcc into
                 ``build/alaz_tpu_torch/`` and print ptxas's register,
                 shared-memory and spill lines;
    gpu env   -- the NVML collector (``runtime/gpu_env.py``) registers on
@@ -51,9 +51,11 @@ Phases, each raising on failure:
                 versions and against the masked form;
    tgn       -- the uniform windows streamed through ``WindowScorer`` under
                 ``ModelConfig(model="tgn")``, the memory grown from 4,096 to
-                131,072 rows by the first; launch counts; scores and the
-                final memory held against the same stream on the plain
-                versions;
+                131,072 rows by the first; launch counts (the GRU kernel's
+                one a window); scores and the final memory held against
+                the same stream on the plain versions; the GRU kernel at
+                the cell's shape against its plain version, and both
+                timed beside the kernel's bound;
    prefetch  -- the uniform windows through ``WindowScorer`` and through
                 ``runtime/pipeline.py DevicePrefetcher`` (page-locked
                 buffers filled and copied on a side stream by a staging
@@ -241,6 +243,7 @@ WINDOW = dict(n_pods=100_000, n_svcs=10_000, n_edges=E_MAIN)  # bench.py's defau
 # bench.py's GAT run: community structure, cluster_renumber layout
 GAT_WINDOW = dict(WINDOW, structure="community", layout="clustered")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores
 K1_SOURCE = "alaz_tpu_torch/csrc/segment.cu"
 K1_REPLACES = "alaz_tpu/ops/pallas_segment.py:184"  # scatter_sum_sorted (pallas_call :170)
@@ -624,18 +627,20 @@ def plain_kernels():
     """Route the forward and backward passes of every kernel wrapper through
     the kernels' plain versions on the card (for the reference runs only;
     restored on exit)."""
+    from alaz_tpu_torch.ops import gru_kernels as G
     from alaz_tpu_torch.ops import segment_kernels as K
 
-    saved = K._run_k1, K._run_k2, K._run_k3, K._run_k4, K._run_sort
+    saved = K._run_k1, K._run_k2, K._run_k3, K._run_k4, K._run_sort, G._run_gru
     K._run_k1 = K.scatter_sum_sorted_plain
     K._run_k2 = lambda v, edge_dst, num_nodes: K.segment_expand_sorted_plain(v, edge_dst)
     K._run_k3 = lambda v, ids, num_nodes: K.gather_rows_banded_plain(v, ids)
     K._run_k4 = K.pallas_gather_scatter_sum_plain
     K._run_sort = K.sort_by_ids_plain
+    G._run_gru = lambda *a: G.gru_update_plain(*a, torch.bfloat16)
     try:
         yield
     finally:
-        K._run_k1, K._run_k2, K._run_k3, K._run_k4, K._run_sort = saved
+        K._run_k1, K._run_k2, K._run_k3, K._run_k4, K._run_sort, G._run_gru = saved
 
 
 def _score_windows(cfg, batches, device: str):
@@ -833,14 +838,16 @@ def phase_tgn_slice(batches, device: str = "cuda") -> tuple:
     renumber nodes under TGN: its memory is slot-indexed across windows),
     through WindowScorer, which owns the memory: presized to
     ``tgn_max_nodes`` (4,096 rows), grown to the 131,072-row bucket by the
-    first window. Launch counts read around the stream (K1 2n, K2 n).
-    Scores and the final memory held against the same stream on the plain
-    versions: scores at a quarter of four bf16 ulps of the largest logit
-    (sigmoid's slope is at most 1/4); the memory, whose gates read bf16
-    node states (an ulp apart moves a gate; the CPU parity against the JAX
-    package sees 0.036 after three windows), at 2^-4 of its ±1 range.
-    Returns (summary, scorer)."""
+    first window. Launch counts read around the stream (K1 2n, K2 n, the
+    GRU kernel n). Scores and the final memory held against the same
+    stream on the plain versions: scores at a quarter of four bf16 ulps of
+    the largest logit (sigmoid's slope is at most 1/4); the memory, whose
+    gates read bf16 node states (an ulp apart moves a gate; the CPU parity
+    against the JAX package sees 0.036 after three windows), at 2^-4 of
+    its ±1 range. On the card the GRU kernel is then held and timed alone
+    at the cell's shape (``gru_numbers``). Returns (summary, scorer)."""
     from alaz_tpu_torch.config import ModelConfig
+    from alaz_tpu_torch.ops import gru_kernels as G
     from alaz_tpu_torch.runtime.scorer import WindowScorer
 
     cfg = ModelConfig(model="tgn")
@@ -848,8 +855,12 @@ def phase_tgn_slice(batches, device: str = "cuda") -> tuple:
             == (128, 2, "bfloat16", True, 4096), f"unexpected TGN ModelConfig {cfg}")
     for b in batches:
         require(b.n_pad > cfg.tgn_max_nodes, "the windows must outgrow the presized memory")
+    gru0 = G.gru_update.launches
     scorer, on_card, window_s, all_scores, launches, peak_bytes = _score_windows(cfg, batches, device)
     n = len(batches)
+    gru_launches = G.gru_update.launches - gru0
+    require(gru_launches == (n if on_card else 0),
+            f"tgn: {gru_launches} GRU kernel launches for {n} windows")
     if on_card:
         require(launches == _counts(2 * n, n, 0, 0),
                 f"expected 2 K1 and 1 K2 launches per window, got {launches} for {n} windows")
@@ -857,8 +868,10 @@ def phase_tgn_slice(batches, device: str = "cuda") -> tuple:
             f"memory {tuple(scorer.memory.shape)} did not grow to the bucket")
     plain = WindowScorer(cfg, scorer.params, device=device)
     require(tuple(plain.memory.shape) == (cfg.tgn_max_nodes, cfg.hidden_dim), "memory not presized")
+    gru0 = G.gru_update.launches
     with plain_kernels():
         plain_scores = [plain.score(b) for b in batches]
+    require(G.gru_update.launches == gru0, "tgn: the plain versions' stream launched the GRU kernel")
     score_errs = []
     for got, ref in zip(all_scores, plain_scores):
         err, bound = float(np.abs(got - ref).max()), 0.25 * 2.0**-6 * _logit_scale(ref)
@@ -873,6 +886,7 @@ def phase_tgn_slice(batches, device: str = "cuda") -> tuple:
         "windows": n,
         "window_s": window_s,
         "launches": launches,
+        "gru_update_launches": gru_launches,
         "memory_rows": [cfg.tgn_max_nodes, int(scorer.memory.shape[0])],
         "memory_rows_nonzero": live,
         "vs_plain_versions": {"scores": score_errs, "memory_max_abs_err": mem_err, "memory_bound": 2.0**-4},
@@ -881,7 +895,59 @@ def phase_tgn_slice(batches, device: str = "cuda") -> tuple:
     if on_card:
         out["max_memory_allocated_bytes"] = peak_bytes
     emit("tgn_slice", out)
+    if on_card:
+        gru_numbers(scorer.params, torch.device(device))
     return out, scorer
+
+
+# the GRU kernel against its plain version: the kernel and the plain path
+# differ only in the order each product's f32 sum is taken, which can land
+# a gate's bf16 rounding one ulp apart (2^-8 below 1); m' = (1 - z) n + z m
+# with |n|, |m| <= 1 then moves by at most 2^-8 * 2 + two ulps of n: 2^-6
+GRU_TOL = 2.0**-6
+
+
+def gru_numbers(params, dev: torch.device, n_pad: int = N_MAIN, seed: int = 5) -> dict:
+    """The GRU kernel alone at the TGN cell's shape (``n_pad`` rows, H =
+    128, ~16% of the rows masked out, memory in [-1, 1]) against its plain
+    version on the card: live rows within ``GRU_TOL``, masked rows bit for
+    bit, one launch a call; then both timed by CUDA events beside the
+    kernel's bound (its bytes: m read and m' written in f32, h in bf16, the
+    mask, the packed bf16 weights; its products: 3 x rows x 2H x H
+    multiply-adds)."""
+    from alaz_tpu_torch.ops import gru_kernels as G
+
+    h = params.gru_r.w.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    memory = torch.rand((n_pad, h), generator=gen, device=dev) * 2 - 1
+    node_h = torch.randn((n_pad, h), generator=gen, device=dev).bfloat16()
+    mask = torch.rand(n_pad, generator=gen, device=dev) > 0.16
+    layers = (params.gru_r, params.gru_z, params.gru_n)
+    with torch.inference_mode():
+        launches0 = G.gru_update.launches
+        got = G.gru_update(*layers, memory, node_h, mask)
+        require(G.gru_update.launches == launches0 + 1, "gru_update: not one launch a call")
+        ref = G.gru_update_plain(*layers, memory, node_h, mask, torch.bfloat16)
+        torch.cuda.synchronize()
+        err = (got - ref).abs()
+        live_err = float(err[mask].max())
+        require(live_err <= GRU_TOL, f"gru_update: live rows {live_err} from the plain version")
+        require(torch.equal(got[~mask], memory[~mask]), "gru_update: masked rows not kept bit for bit")
+        ms = time_ms(lambda: G.gru_update(*layers, memory, node_h, mask))
+        plain_ms = time_ms(lambda: G.gru_update_plain(*layers, memory, node_h, mask, torch.bfloat16), iters=20)
+    bytes_moved = n_pad * (h * 4 + h * 2 + 1 + h * 4) + 3 * (2 * h * h + h) * 2
+    flops = 3 * 2 * n_pad * 2 * h * h
+    bound_ms = max(bytes_moved / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
+    out = {
+        "rows": n_pad, "hidden": h, "masked_rows": int((~mask).sum()),
+        "max_abs_err_live": live_err, "tol": GRU_TOL,
+        "share_exact": float((err[mask] == 0).float().mean()),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "bytes" if bytes_moved / HBM_BYTES_PER_S >= flops / BF16_FLOPS_PER_S else "operations",
+        "roofline_pct": 100.0 * bound_ms / ms,
+    }
+    emit("gru_update", out)
+    return out
 
 
 # -- the serving phase --------------------------------------------------------
@@ -963,6 +1029,7 @@ def _serve_once(cfg, params, sim_cfg=None, backlog=None, device: str = "cuda",
     around the run, before the service stops; what it yields is the
     result's ``"watch"``."""
     from alaz_tpu_torch.events.intern import Interner
+    from alaz_tpu_torch.ops import gru_kernels as G
     from alaz_tpu_torch.ops import segment_kernels as K
     from alaz_tpu_torch.replay.simulator import Simulator
     from alaz_tpu_torch.runtime.service import Service
@@ -983,6 +1050,7 @@ def _serve_once(cfg, params, sim_cfg=None, backlog=None, device: str = "cuda",
         torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     split0 = K.k1_split_counts(svc.torch_device)
+    gru0 = G.gru_update.launches
     events = 0
     watched = None
     compile_plane = {}
@@ -1044,6 +1112,11 @@ def _serve_once(cfg, params, sim_cfg=None, backlog=None, device: str = "cuda",
             "launches": launches,
             # K1's rows split across chunk warps in this run, and their edges
             "k1_split": {"rows": split[0], "edges": split[1]},
+            # the GRU kernel's launches in this run, and as TGN's gauge
+            # tgn.memory_update_kernel reads them (None under other models)
+            "gru_update_launches": G.gru_update.launches - gru0,
+            "memory_update_kernel": (None if "tgn.memory_update_kernel" not in snap
+                                     else snap["tgn.memory_update_kernel"] - gru0),
             "compile_plane": compile_plane,
         },
     }
@@ -1057,6 +1130,12 @@ def _require_launches(family: str, run: dict) -> None:
     require(run["summary"]["launches"] == _counts(k1 * d, k2 * d, k3 * d, 0),
             f"serve {family}: launches {run['summary']['launches']} for {d} dispatches, "
             f"expected K1 {k1}, K2 {k2}, K3 {k3} a dispatch")
+    gru = run["summary"]["gru_update_launches"]
+    want = run["summary"]["windows_scored"] if family == "tgn" else 0
+    require(gru == want, f"serve {family}: {gru} GRU kernel launches for {want} expected")
+    if family == "tgn":
+        gauge = run["summary"]["memory_update_kernel"]
+        require(gauge == want, f"serve tgn: tgn.memory_update_kernel moved {gauge} for {want} windows")
 
 
 def _launch_budget(svc) -> dict:
@@ -2757,6 +2836,7 @@ def phase_train_tgn(batches, device: str = "cuda") -> dict:
     1 + 2), a finite loss and a gradient on the GRU. Its time includes the
     params' init and the windows' move to the card."""
     from alaz_tpu_torch.config import ModelConfig
+    from alaz_tpu_torch.ops import gru_kernels as G
     from alaz_tpu_torch.ops import segment_kernels as K
     from alaz_tpu_torch.train.trainstep import train_tgn_unrolled
 
@@ -2768,11 +2848,13 @@ def phase_train_tgn(batches, device: str = "cuda") -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
+    gru0 = G.gru_update.launches
     t0 = time.perf_counter()
     state, losses = train_tgn_unrolled(cfg, labelled, epochs=1, device=dev)
     epoch_s = time.perf_counter() - t0
     launches = K.launch_counts()
     n = len(batches)
+    require(G.gru_update.launches == gru0, "tgn unrolled: the GRU kernel ran under autograd")
     if on_card:
         require(launches == _counts(3 * n, 3 * n, 0, 0), f"tgn unrolled: launches {launches} for {n} windows")
     require(np.isfinite(losses).all() and state.step == 1, f"tgn unrolled: losses {losses}")

@@ -14,7 +14,9 @@ The backward passes: K1's (a K2 launch) bit-exact; K2's, K3's and K4's
 ``dx`` (a K1, K4 and K4 launch) held to the float64 sum at K1's
 tolerance. The sort of K3's and K4's backward bit-exact against its plain
 version, and those two backward passes bit-exact against the
-``torch.argsort`` + K4 composition the sort replaced.
+``torch.argsort`` + K4 composition the sort replaced. The GRU memory
+update (``csrc/gru.cu``): masked rows and the rows past the bucket
+bit-exact, live rows within ``GRU_TOL`` of its plain version.
 """
 
 from __future__ import annotations
@@ -1369,3 +1371,131 @@ def test_parallel_steps_on_card_launch_the_kernels(dev):
                                     "gather_rows_banded": 0, "pallas_gather_scatter_sum": 0}
     assert out["edge_err"] <= 2.0**-5 * out["edge_scale"]
     assert out["node_err"] <= 2.0**-5 * out["node_scale"]
+
+
+# -- the GRU memory update (csrc/gru.cu) -----------------------------------
+
+# The kernel and its plain version differ only in the order in which each
+# product's f32 sum is taken. That can land a gate's bf16 rounding one ulp
+# apart (at most 2^-8 below 1); m' = (1 - z) n + z m with |n|, |m| <= 1
+# then moves by at most 2^-8 * |n - m| <= 2^-7 through z and two ulps of n
+# (its own rounding and r's): 2^-6 in all.
+GRU_TOL = 2.0**-6
+
+
+def _gru_layers(h: int, dev, seed: int) -> list:
+    from alaz_tpu_torch.models.common import Dense
+
+    gen = torch.Generator().manual_seed(seed)
+    layers = []
+    for _ in range(3):
+        d = Dense(2 * h, h)
+        d.reset_parameters(gen)
+        with torch.no_grad():
+            d.b.copy_(torch.randn(h, generator=gen) * 0.5)
+        layers.append(d.to(dev))
+    return layers
+
+
+def _gru_inputs(h: int, n_pad: int, n_mem: int, dev, seed: int) -> tuple:
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    memory = torch.rand((n_mem, h), generator=gen, device=dev) * 2 - 1  # a memory stays in [-1, 1]
+    node_h = torch.randn((n_pad, h), generator=gen, device=dev).bfloat16()
+    mask = torch.rand(n_pad, generator=gen, device=dev) > 0.16
+    return memory, node_h, mask
+
+
+@pytest.mark.parametrize("h,n_pad,n_mem", [
+    (128, 131_072, 131_072),  # the TGN cell's bucket
+    (128, 131_059, 131_200),  # a ragged last tile, a memory longer than the bucket
+    (64, 1_003, 1_500),
+    (32, 37, 37),
+    (32, 0, 20),  # no bucket: the tail alone
+])
+def test_gru_update_matches_plain(dev, h, n_pad, n_mem):
+    """One launch a call; masked rows and the rows past the bucket as they
+    were, bit for bit; live rows within ``GRU_TOL`` of the plain version;
+    two calls alike."""
+    from alaz_tpu_torch.ops import gru_kernels as G
+
+    layers = _gru_layers(h, dev, h + n_pad)
+    memory, node_h, mask = _gru_inputs(h, n_pad, n_mem, dev, n_pad + 1)
+    with torch.inference_mode():
+        launches = G.gru_update.launches
+        got = G.gru_update(*layers, memory, node_h, mask)
+        torch.cuda.synchronize()
+        assert G.gru_update.launches == launches + 1
+        again = G.gru_update(*layers, memory, node_h, mask)
+        ref = G.gru_update_plain(*layers, memory, node_h, mask, torch.bfloat16)
+    assert got.shape == (n_mem, h) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    assert torch.equal(got[n_pad:], memory[n_pad:])
+    assert torch.equal(got[:n_pad][~mask], memory[:n_pad][~mask])
+    live = (got[:n_pad][mask] - ref[:n_pad][mask]).abs()
+    assert live.numel() == 0 or float(live.max()) <= GRU_TOL
+
+
+def test_tgn_update_takes_the_kernel_only_outside_autograd(dev):
+    """``tgn.update`` launches the GRU kernel under ``inference_mode`` and
+    ``no_grad``, and runs the plain version, launching nothing, where
+    autograd records (the kernel has no backward) or the compute dtype is
+    f32; the two agree within ``GRU_TOL``."""
+    from alaz_tpu_torch.config import ModelConfig
+    from alaz_tpu_torch.models import tgn
+    from alaz_tpu_torch.ops import gru_kernels as G
+
+    cfg = ModelConfig(model="tgn")
+    model = tgn.init(0, cfg, device=dev)
+    memory, node_h, mask = _gru_inputs(cfg.hidden_dim, 4_096, 4_096, dev, 7)
+    graph = {"node_mask": mask}
+    n0 = G.gru_update.launches
+    under_grad = tgn.update(model, graph, memory, node_h, cfg)
+    assert under_grad.requires_grad and G.gru_update.launches == n0
+    with torch.inference_mode():
+        kernel = tgn.update(model, graph, memory, node_h, cfg)
+    with torch.no_grad():
+        tgn.update(model, graph, memory, node_h, cfg)
+        f32_cfg = ModelConfig(model="tgn", dtype="float32")
+        tgn.update(model, graph, memory, node_h.float(), f32_cfg)
+    assert G.gru_update.launches == n0 + 2
+    assert float((kernel - under_grad.detach()).abs().max()) <= GRU_TOL
+
+
+def test_gru_update_refuses_what_the_kernel_does_not_take(dev):
+    from alaz_tpu_torch.ops import gru_kernels as G
+
+    layers = _gru_layers(32, dev, 0)
+    memory, node_h, mask = _gru_inputs(32, 64, 64, dev, 0)
+    with torch.inference_mode():
+        with pytest.raises(TypeError):
+            G.gru_update(*layers, memory, node_h.float(), mask)
+        with pytest.raises(TypeError):
+            G.gru_update(*layers, memory.double(), node_h, mask)
+        with pytest.raises(ValueError):
+            G.gru_update(*layers, memory[:32], node_h, mask)  # memory shorter than the bucket
+        with pytest.raises(ValueError):
+            G.gru_update(*layers, memory.t().contiguous().t(), node_h, mask)  # not contiguous
+        wide = _gru_layers(48, dev, 0)
+        m48, h48, k48 = _gru_inputs(48, 64, 64, dev, 0)
+        with pytest.raises(ValueError):
+            G.gru_update(*wide, m48, h48, k48)
+        m64, h64, k64 = _gru_inputs(64, 64, 64, dev, 0)
+        with pytest.raises(ValueError):
+            G.gru_update(*layers, m64, h64, k64)  # layers of another width
+
+
+def test_gru_activations_equal_torch_on_every_bf16_input(dev):
+    """The kernel's sigmoid (``rcp.approx(1 + __expf(-x))``) and tanh
+    (``tanh.approx``), rounded to bf16, give ``torch.sigmoid``'s and
+    ``torch.tanh``'s bits on every bf16 input but NaN: the gates' inputs
+    are bf16 values, so the kernel's activations are the plain version's."""
+    from alaz_tpu_torch.ops import gru_kernels as G
+
+    x = torch.arange(-(2**15), 2**15, dtype=torch.int32, device=dev).to(torch.int16).view(torch.bfloat16)
+    got = G.gru_activations(x)
+    keep = ~torch.isnan(x)
+    with torch.inference_mode():
+        want = torch.stack([torch.sigmoid(x), torch.tanh(x)])
+    for k in range(2):
+        assert torch.equal(got[k][keep].view(torch.int16), want[k][keep].view(torch.int16))
+    assert bool(torch.isnan(got[:, ~keep]).all())

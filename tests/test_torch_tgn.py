@@ -254,3 +254,166 @@ def test_train_tgn_unrolled_learns(windows):
     assert state2.step == 2 and np.isfinite(losses2).all()
     with pytest.raises(ValueError, match="no training windows"):
         trainstep.train_tgn_unrolled(cfg, [], device="cpu")
+
+
+# -- the GRU memory update: its plain version and the kernel's packing --------
+
+
+def _update_before_the_kernel(params, graph, memory, node_h, cfg):
+    """``tgn.update`` as it was written before the GRU kernel, kept here to
+    hold its plain version (``gru_kernels.gru_update_plain``) to it."""
+    dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+    def dense(p, x):
+        return x @ p.w.to(x.dtype) + p.b.to(x.dtype)
+
+    n_pad = node_h.shape[0]
+    m_prev = memory[:n_pad]
+    h = node_h.float()
+    hz = torch.cat([m_prev.to(dtype), h.to(dtype)], dim=-1)
+    r = torch.sigmoid(dense(params.gru_r, hz)).float()
+    z = torch.sigmoid(dense(params.gru_z, hz)).float()
+    hn = torch.cat([(r * m_prev).to(dtype), h.to(dtype)], dim=-1)
+    n_t = torch.tanh(dense(params.gru_n, hn)).float()
+    m_new = (1 - z) * n_t + z * m_prev
+    m_next = torch.where(graph["node_mask"][:, None], m_new, m_prev)
+    if memory.shape[0] > n_pad:
+        m_next = torch.cat([m_next, memory[n_pad:]])
+    return m_next
+
+
+def _gru_inputs(h: int, n_pad: int, n_mem: int, dtype: torch.dtype, seed: int):
+    gen = torch.Generator().manual_seed(seed)
+    memory = torch.rand((n_mem, h), generator=gen) * 2 - 1
+    node_h = torch.randn((n_pad, h), generator=gen).to(dtype)
+    mask = torch.rand(n_pad, generator=gen) > 0.16
+    return memory, node_h, mask
+
+
+@pytest.mark.parametrize("h", [16, 32])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("n_mem", [300, 420])
+def test_gru_update_plain_equals_the_update_before_the_kernel(h, dtype, n_mem):
+    """``gru_update_plain``, through ``tgn.update`` on the CPU, gives the
+    pre-kernel update's bits: the same products in the compute dtype, masked
+    rows kept, a memory longer than the 300-row bucket keeping its tail."""
+    from alaz_tpu_torch.ops import gru_kernels
+
+    cfg = ModelConfig(model="tgn", hidden_dim=h, dtype=dtype, use_pallas=True)
+    model = tgn.init(3, cfg, device="cpu")
+    tdtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    memory, node_h, mask = _gru_inputs(h, 300, n_mem, tdtype, seed=h + n_mem)
+    graph = {"node_mask": mask}
+    launches = gru_kernels.gru_update.launches
+    with torch.no_grad():
+        want = _update_before_the_kernel(model, graph, memory, node_h, cfg)
+        got = tgn.update(model, graph, memory, node_h, cfg)
+        plain = gru_kernels.gru_update_plain(model.gru_r, model.gru_z, model.gru_n, memory, node_h, mask, tdtype)
+    assert gru_kernels.gru_update.launches == launches  # the CPU takes the plain version
+    assert got.shape == (n_mem, h) and got.dtype == torch.float32
+    assert torch.equal(got, want) and torch.equal(plain, want)
+    assert torch.equal(got[300:], memory[300:]) and torch.equal(got[:300][~mask], memory[:300][~mask])
+
+
+def _warpgroup_product(a_frags: np.ndarray, slab: np.ndarray) -> np.ndarray:
+    """One ``wgmma.m64nNk16`` of one warp's 16 rows, in float64, from the
+    PTX layouts the kernel uses: ``a_frags`` [32 lanes, 8] (a0..a7 of the
+    m16k16 A fragment), ``slab`` [N/8, 2, 8, 8] (the B operand's 8 x 8 core
+    matrices, K-major: [n8 tile, k half, row n, k]); returns the warp's
+    D fragments [32, N/8, 4] (n8 tile j: c0, c1 at row g, columns 8j + 2q,
+    + 1; c2, c3 at row g + 8)."""
+    tiles = slab.shape[0]
+    a, b = np.zeros((16, 16)), np.zeros((16, 8 * tiles))
+    for lane in range(32):
+        g, q = divmod(lane, 4)
+        for i in range(8):
+            a[g + 8 * ((i // 2) % 2), 2 * q + i % 2 + 8 * (i // 4)] = a_frags[lane, i]
+    for j in range(tiles):
+        for half in range(2):
+            b[8 * half:8 * half + 8, 8 * j:8 * j + 8] = slab[j, half].T
+    d = a @ b
+    out = np.zeros((32, tiles, 4))
+    for lane in range(32):
+        g, q = divmod(lane, 4)
+        for j in range(tiles):
+            out[lane, j] = [d[g, 8 * j + 2 * q], d[g, 8 * j + 2 * q + 1],
+                            d[g + 8, 8 * j + 2 * q], d[g + 8, 8 * j + 2 * q + 1]]
+    return out
+
+
+@pytest.mark.parametrize("k,n", [(64, 32), (256, 128)])
+def test_pack_gru_weight_follows_the_kernels_fragment_order(k, n):
+    """``pack_gru_weight`` against the wgmma operand layouts, as
+    ``csrc/gru.cu`` uses them: 16 rows of x in the kernel's A fragments
+    (lane ``4g + q`` holds rows g, g + 8 and the columns ``16kb + 4q .. +
+    3`` of each k block in the k slots 2q, 2q + 1, 2q + 8, 2q + 9), times
+    each pass's packed slabs, accumulated over the k blocks, give ``x @ w``
+    with each thread's four sums of a 16-column block at its own columns
+    ``16b + 4q .. + 3``; those sums, taken as the next product's A
+    fragments as the kernel takes ``r * m``, give ``(x @ w) @ w2``."""
+    from alaz_tpu_torch.ops.gru_kernels import GRU_PASSES, pack_gru_weight
+
+    rng = np.random.default_rng(k + n)
+    x = rng.integers(-4, 5, (16, k)).astype(np.float64)  # small integers: every sum exact
+    w = torch.from_numpy(rng.integers(-4, 5, (k, n)).astype(np.float32))
+    w2 = torch.from_numpy(rng.integers(-4, 5, (n, n)).astype(np.float32))
+
+    def a_frags(cols):  # cols(row) -> the thread's four values of its k block
+        out = np.zeros((32, 8))
+        for lane in range(32):
+            g, q = divmod(lane, 4)
+            lo, hi = cols(g, q), cols(g + 8, q)
+            out[lane] = [lo[0], lo[1], hi[0], hi[1], lo[2], lo[3], hi[2], hi[3]]
+        return out
+
+    def product(frags_of, weight):  # -> the thread's sums [lane, 16-column block, row, j]
+        packed = pack_gru_weight(weight).double().numpy()
+        passes = min(GRU_PASSES, weight.shape[1] // 16)
+        assert packed.shape == (passes, weight.shape[0] // 16, weight.shape[1] // 8 // passes, 2, 8, 8)
+        sums = np.zeros((32, weight.shape[1] // 16, 2, 4))
+        for p in range(passes):
+            d = sum(_warpgroup_product(frags_of(kb), packed[p, kb]) for kb in range(packed.shape[1]))
+            for t in range(d.shape[1]):  # n8 tile t of the pass: block, then columns 2 (t % 2) ..
+                b = (p * d.shape[1] + t) // 2
+                for row in range(2):
+                    sums[:, b, row, 2 * (t % 2):2 * (t % 2) + 2] = d[:, t, 2 * row:2 * row + 2]
+        return sums
+
+    def logical(sums):
+        y = np.zeros((16, 16 * sums.shape[1]))
+        for lane in range(32):
+            g, q = divmod(lane, 4)
+            for b in range(sums.shape[1]):
+                for row in range(2):
+                    y[g + 8 * row, 16 * b + 4 * q:16 * b + 4 * q + 4] = sums[lane, b, row]
+        return y
+
+    sums = product(lambda kb: a_frags(lambda r, q: x[r, 16 * kb + 4 * q:16 * kb + 4 * q + 4]), w)
+    np.testing.assert_array_equal(logical(sums), x @ w.numpy())
+    # the sums of block b as the A fragments of k block b (the kernel's r * m)
+    sums2 = product(lambda kb: a_frags(lambda r, q: sums[4 * (r % 8) + q, kb, r // 8]), w2)
+    np.testing.assert_array_equal(logical(sums2), x @ w.numpy() @ w2.numpy())
+
+
+def test_packed_weights_follow_the_parameters_versions():
+    """The wrapper packs the GRU's weights once for each version of its
+    parameters: a second call reuses the packing, an in-place update of a
+    parameter (an optimizer step) or another model's parameters repack."""
+    from alaz_tpu_torch.ops import gru_kernels
+
+    cfg = ModelConfig(model="tgn", hidden_dim=32)
+    model = tgn.init(0, cfg, device="cpu")
+    layers = (model.gru_r, model.gru_z, model.gru_n)
+    w1, b1 = gru_kernels._packed(*layers, 32, torch.device("cpu"))
+    assert w1.shape == (3, 2, 4, 2, 2, 8, 8) and w1.dtype == torch.bfloat16 and not w1.requires_grad
+    assert b1.shape == (3, 32) and torch.equal(b1[1], model.gru_z.b.to(torch.bfloat16))
+    w2, _ = gru_kernels._packed(*layers, 32, torch.device("cpu"))
+    assert w2 is w1
+    with torch.no_grad():
+        model.gru_n.w.add_(1.0)
+    w3, _ = gru_kernels._packed(*layers, 32, torch.device("cpu"))
+    assert w3 is not w1 and torch.equal(w3[:2], w1[:2]) and not torch.equal(w3[2], w1[2])
+    assert torch.equal(w3[2], gru_kernels.pack_gru_weight(model.gru_n.w))
+    other = tgn.init(1, cfg, device="cpu")
+    w4, _ = gru_kernels._packed(other.gru_r, other.gru_z, other.gru_n, 32, torch.device("cpu"))
+    assert not torch.equal(w4, w3)

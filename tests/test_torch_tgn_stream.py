@@ -240,6 +240,23 @@ def test_memory_grows_counted_and_the_memory_series_only_under_tgn():
     assert "memory" not in sage.tracer.stage_snapshot()
 
 
+def test_memory_update_kernel_gauge_reads_the_kernels_launches(monkeypatch):
+    """``tgn.memory_update_kernel`` reads ``gru_update.launches`` (the GRU
+    kernel's launches in the process): 0 after a CPU stream, whose update
+    is the plain version, and whatever the counter holds when read; the
+    Service registers it under TGN alone."""
+    from alaz_tpu_torch.ops import gru_kernels
+
+    before = gru_kernels.gru_update.launches
+    svc = _served("tgn", max_nodes=1024)
+    assert svc.scored_batches == 2
+    assert svc.metrics.snapshot()["tgn.memory_update_kernel"] == before
+    monkeypatch.setattr(gru_kernels.gru_update, "launches", before + 7)
+    assert svc.metrics.snapshot()["tgn.memory_update_kernel"] == before + 7
+    sage = _served("graphsage", max_nodes=256)
+    assert "tgn.memory_update_kernel" not in sage.metrics.snapshot()
+
+
 def test_add_stage_registers_a_models_stage_in_a_private_tracer():
     tracer = SpanTracer()
     assert "memory" not in tracer.hists and "memory" not in tracer.cpu
@@ -304,3 +321,17 @@ def test_memory_device_time_from_events_on_card():
     assert svc.scored_batches == 6 and len(score_s) == 6
     assert memory["count"] == 5 and 0 < memory["sum"] <= sum(score_s[:5])
     assert snap["latency.memory_s.count"] == 6 and snap["tgn.memory_rows_updated"] == 5 * (PODS + SERVICES)
+
+
+@pytest.mark.cuda
+def test_memory_update_kernel_gauge_counts_a_launch_a_window_on_card():
+    """On a card every window's memory update is one GRU kernel launch:
+    ``tgn.memory_update_kernel`` moves by the windows scored."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from alaz_tpu_torch.ops import gru_kernels
+
+    before = gru_kernels.gru_update.launches
+    svc = _served("tgn", max_nodes=1024, device="cuda", windows=4)
+    assert svc.scored_batches == 4
+    assert svc.metrics.snapshot()["tgn.memory_update_kernel"] - before == 4
