@@ -19,6 +19,8 @@ dtype, as in the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
 
@@ -117,10 +119,12 @@ def _expert_messages_table(layer: ExpertLayer, h, edge_src, edge_type, dtype) ->
     return flat[torch.clamp(idx, 0, t * n - 1)] * valid
 
 
-def apply(params: Experts, graph: dict, cfg: ModelConfig) -> dict:
+def apply(params: Experts, graph: dict, cfg: ModelConfig, around_dispatch=contextlib.nullcontext) -> dict:
     """Forward pass over a graph of tensors (``convert.graph_to_torch``).
     An unknown ``cfg.expert_dispatch`` raises: a typo must not run the
-    other form under this one's name."""
+    other form under this one's name. ``around_dispatch()`` is entered
+    around each layer's expert dispatch alone (the Service's span and
+    device clock); it changes no number."""
     dtype = compute_dtype(cfg)
     graph = maybe_znorm_graph(graph, cfg)
     n = graph["node_feats"].shape[0]
@@ -136,12 +140,13 @@ def apply(params: Experts, graph: dict, cfg: ModelConfig) -> dict:
             f"expert_dispatch {cfg.expert_dispatch!r}; expected 'table' or 'masked'"
         )
     for layer in params.layers:
-        if cfg.expert_dispatch == "table":
-            msgs = _expert_messages_table(layer, h, graph["edge_src"], graph["edge_type"], dtype)
-        else:
-            msgs = _expert_messages_masked(
-                layer, gather_src(h, graph["edge_src"], n, cfg.src_gather), graph["edge_type"], dtype
-            )
+        with around_dispatch():
+            if cfg.expert_dispatch == "table":
+                msgs = _expert_messages_table(layer, h, graph["edge_src"], graph["edge_type"], dtype)
+            else:
+                msgs = _expert_messages_masked(
+                    layer, gather_src(h, graph["edge_src"], n, cfg.src_gather), graph["edge_type"], dtype
+                )
         msgs = msgs + dense(layer["edge_proj"], ef)
         agg, _ = scatter_messages(msgs, graph["edge_dst"], edge_mask, n, cfg.use_pallas, deg=deg)
         agg = agg / torch.clamp(deg, min=1.0)[:, None]

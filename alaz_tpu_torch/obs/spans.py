@@ -30,11 +30,13 @@ stages of its own (``PORT_STAGES``), nested as they run:
     forward, backward, optim          (the rest of the train step)
     memory                            (TGN's memory update, inside
                                        dispatch; no window's span)
+    experts                           (each layer's expert dispatch,
+                                       inside dispatch; no window's span)
 
-``memory`` is a model's own stage (``MODEL_STAGES``): its series
-register only in a tracer that ``add_stage`` gives it, the Service's
-under ``model="tgn"``, so every other Service's names stay the JAX
-service's.
+``memory`` and ``experts`` are models' own stages (``MODEL_STAGES``):
+their series register only in a tracer that ``add_stage`` gives them,
+the Service's under ``model="tgn"`` and ``model="experts"``, so every
+other Service's names stay the JAX service's.
 
 A span times its stage on the host (``perf_counter`` wall seconds into
 ``latency.<stage>_s``, a histogram for every stage of both tuples; the
@@ -114,7 +116,7 @@ SPAN_STAGES = ("stage", "score", "export") + PORT_STAGES
 
 # stages only some models run (module docstring): ``SpanTracer.add_stage``
 # registers one where its model runs
-MODEL_STAGES = ("memory",)
+MODEL_STAGES = ("memory", "experts")
 
 # this thread's open spans' stages, innermost last
 _LOCAL = threading.local()

@@ -472,6 +472,8 @@ class Service:
         self.model_state = model_state
         self._score_fn = None
         self._tgn_memory = None  # temporal model node memory (tgn only)
+        # the staged windows' live edges counted by expert (experts only)
+        self._count_routes: Optional[Callable[[list], None]] = None
         if model_state is not None and score_fn is not None:
             # host scorer override: no model, no kernels — the scorer
             # loop runs the callable over numpy graphs
@@ -492,6 +494,8 @@ class Service:
                 from alaz_tpu_torch.train.trainstep import make_score_fn
 
                 self._score_fn = make_score_fn(self.config.model, self.torch_device)
+                if self.config.model.model == "experts":
+                    self._score_fn = self._experts_score_fn(self._score_fn)
         # backlog micro-batching (config.score_batch_windows): stacked
         # twin of the score fn for window-independent models. TGN is
         # excluded — its memory threads sequentially through windows.
@@ -856,6 +860,8 @@ class Service:
                 arrays = {k: np.asarray(v) for k, v in arrays.items()}
             else:
                 arrays = {k: torch.as_tensor(v) for k, v in arrays.items()}
+        if self._count_routes is not None:
+            self._count_routes(batches)
         self._scorer_busy_s += stage.wall_s
         for b in batches:
             # occupancy per REAL window: a group's padding re-ships its
@@ -1129,12 +1135,46 @@ class Service:
             if carry is not None:
                 self.window_queue.task_done()
 
+    def _timed_stage(self, name: str, histogram: str) -> tuple:
+        """A model stage's span and device time, registered here: the span
+        stage ``name`` and, on a card, the histogram ``histogram``.
+        Returns ``(around, settle)``. ``around(then=None)`` is a context
+        manager: the span ``name``, inside it on a card a CUDA event pair
+        (``ScoreClock``) around the body, then ``then()``. ``settle()``
+        observes the summed device time of the pairs entered since the
+        last settle, as one observation; call it once the scorer's read
+        of the logits has synchronised past them, so it needs no sync of
+        its own."""
+        self.tracer.add_stage(name)
+        on_card = self.torch_device.type == "cuda"
+        clock = ScoreClock() if on_card else None
+        device_s = self.metrics.histogram(histogram) if on_card else None
+        pairs: list = []  # entered since the last settle
+
+        @contextlib.contextmanager
+        def around(then=None):
+            with self.tracer.span(name):
+                pair = clock.start() if on_card else None
+                yield
+                if on_card:
+                    clock.stop(pair)
+                    pairs.append(pair)
+                if then is not None:
+                    then()
+
+        def settle() -> None:
+            if pairs:
+                device_s.observe(sum(clock.read(pair) for pair in pairs))
+                pairs.clear()
+
+        return around, settle
+
     def _tgn_score_fn(self, step) -> Callable:
         """The score fn that threads ``_tgn_memory`` through ``step``
         (``tgn.make_step_fn``) window by window, and the memory update's
         own series, registered here alone (tgn only): the span stage
-        ``memory``; on a card ``latency.memory_device_s``, a CUDA event
-        pair around the update's launches (``ScoreClock``); the gauges
+        ``memory`` and on a card ``latency.memory_device_s`` around the
+        update's launches (``_timed_stage``); the gauges
         ``tgn.memory_rows`` and ``tgn.memory_update_kernel`` (the GRU
         kernel's launches in the process, ``gru_update.launches``: one a
         window scored on a card, 0 on the CPU); the counters
@@ -1146,47 +1186,74 @@ class Service:
         read when the next window is scored: the scorer read the
         window's logits in between, which synchronised past both, so
         reading them needs no sync of its own."""
-        self.tracer.add_stage("memory")
+        around, settle_device = self._timed_stage("memory", "latency.memory_device_s")
         self.metrics.gauge("tgn.memory_rows", lambda: self._tgn_memory.shape[0])
         self.metrics.gauge("tgn.memory_update_kernel", lambda: gru_update.launches)
         grows = self.metrics.counter("tgn.memory_grows")
         rows_updated = self.metrics.counter("tgn.memory_rows_updated")
         on_card = self.torch_device.type == "cuda"
-        clock = ScoreClock() if on_card else None
-        device_s = self.metrics.histogram("latency.memory_device_s") if on_card else None
         rows = torch.zeros((), dtype=torch.int64, pin_memory=on_card)  # the last window's, copied back
-        pending: list = []  # the last window's event pair (None on the CPU), until it is read
+        unread = [False]  # the last window's rows, until they are read
 
-        @contextlib.contextmanager
-        def around_update(mask):
-            with self.tracer.span("memory"):
-                pair = clock.start() if on_card else None
-                yield
-                if on_card:
-                    clock.stop(pair)
-                rows.copy_(mask.sum(), non_blocking=True)
-                pending.append(pair)
+        def copy_rows(mask) -> None:
+            rows.copy_(mask.sum(), non_blocking=True)
+            unread[0] = True
 
         def settle() -> None:
-            while pending:
-                pair = pending.pop()
+            settle_device()
+            if unread[0]:
                 rows_updated.inc(int(rows))
-                if pair is not None:
-                    device_s.observe(clock.read(pair))
+                unread[0] = False
 
         def tgn_score(params, graph):
             settle()  # the previous window's: its logits were read
             if self._tgn_memory.shape[0] < graph["node_feats"].shape[0]:
                 grows.inc()
+            mask = graph["node_mask"]
             with torch.inference_mode():
                 out, self._tgn_memory = step(
-                    params, graph, self._tgn_memory, lambda: around_update(graph["node_mask"])
+                    params, graph, self._tgn_memory, lambda: around(lambda: copy_rows(mask))
                 )
             if not on_card:
                 settle()  # on the host the count is already there
             return out
 
         return tgn_score
+
+    def _experts_score_fn(self, score_apply) -> Callable:
+        """The experts' score fn: ``score_apply`` (``make_score_fn``) with
+        the expert dispatch's own series, registered here alone (experts
+        only): the span stage ``experts`` around each layer's dispatch
+        and on a card ``latency.experts_device_s``, its device time
+        summed over a window's layers (``_timed_stage``), read when the
+        next window is scored; the counters
+        ``experts.edges_routed.e<t>``, a staged window's live edges of
+        type ``t`` summed over windows, and the gauge ``experts.live``,
+        the experts that got an edge in the last staged window, both
+        counted on the host from the hand-off's ``edge_type`` at staging
+        (``_stage``; a stacked group's windows too), so the card does no
+        work for them. Codes outside ``[0, T)`` route to no expert. The
+        stacked group path dispatches without the span and the clock."""
+        t = self.config.model.num_edge_types
+        around, settle = self._timed_stage("experts", "latency.experts_device_s")
+        routed = [self.metrics.counter(f"experts.edges_routed.e{i}") for i in range(t)]
+        live = self.metrics.gauge("experts.live")
+
+        def count_routes(batches: list) -> None:
+            for b in batches:
+                types = b.edge_type[: b.n_edges]
+                counts = np.bincount(types[(types >= 0) & (types < t)], minlength=t)
+                for c, n in zip(routed, counts.tolist()):
+                    if n:
+                        c.inc(n)
+                live.set(int(np.count_nonzero(counts)))
+
+        def experts_score(params, graph):
+            settle()  # the previous window's: its logits were read
+            return score_apply(params, graph, around_dispatch=around)
+
+        self._count_routes = count_routes
+        return experts_score
 
     def _tracer_for(self, batch: GraphBatch):
         """The span tracer owning this batch's window: its emitting

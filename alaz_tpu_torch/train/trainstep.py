@@ -342,13 +342,14 @@ def make_score_fn(cfg: ModelConfig, device=None) -> Callable:
     ``cuda``). ``graph`` may hold numpy arrays or tensors; they are moved
     to the device. Runs under ``torch.inference_mode``: its outputs, and
     tensors it made, cannot feed a backward (``make_train_step`` copies
-    such inputs)."""
+    such inputs). Keyword arguments go on to the model's ``apply`` (the
+    experts' ``around_dispatch``)."""
     _, apply = get_model(cfg.model)
     dev = resolve_device(device)
 
-    def score_apply(params, graph: dict) -> dict:
+    def score_apply(params, graph: dict, **apply_kw) -> dict:
         with torch.inference_mode(), dispatch("score_apply", graph):
-            return apply(params, graph_to_torch(graph, dev), cfg)
+            return apply(params, graph_to_torch(graph, dev), cfg, **apply_kw)
 
     return score_apply
 

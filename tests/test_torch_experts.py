@@ -137,10 +137,11 @@ def test_out_of_range_codes_give_zero_messages(dtype):
     both forms; the codes in range get their expert's message."""
     cfg = ModelConfig(model="experts", hidden_dim=8)
     layer = experts.init(0, cfg, device="cpu").layers[0]
+    gen = torch.Generator().manual_seed(0)  # its own draws, whatever ran before it
     with torch.no_grad():
-        layer.expert_b.copy_(torch.randn(layer.expert_b.shape))
+        layer.expert_b.copy_(torch.randn(layer.expert_b.shape, generator=gen))
     t = cfg.num_edge_types
-    h = torch.randn(16, 8).to(dtype)
+    h = torch.randn(16, 8, generator=gen).to(dtype)
     src = torch.tensor([1, 2, 3, 4, 5], dtype=torch.int32)
     etype = torch.tensor([-1, t, 0, t - 1, 3], dtype=torch.int32)
     with torch.no_grad():
